@@ -35,3 +35,10 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.default_rng(1234)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (runs the CUDA kernels); skips without one",
+    )
