@@ -84,3 +84,89 @@ def test_short_reads_give_empty_dict(rng):
         device="cpu",
     )
     assert d.size == 0 and hist.sum() == 0
+
+
+@pytest.mark.parametrize("k", [21, 31, 60])
+def test_radix_backend_matches_jax_lax(rng, monkeypatch, k):
+    """W2RAP_SORT=radix (K4 through its plain version, the tile shrunk as
+    tests/test_kmer_engine.py:259-261 shrink JAX's) against the JAX
+    package's default lax path: dictionary and histogram.  Reads with
+    errors and low-quality bases, no block repeated past a slot."""
+    from w2rap_contigger_tpu_torch.ops import radix
+
+    L = k + 63  # 64 windows a read, 32768 rows
+    genome = rng.integers(0, 4, size=3000).astype(np.uint8)
+    starts = rng.integers(0, len(genome) - L, size=512)
+    bases = np.stack([genome[s : s + L] for s in starts])
+    err = rng.random(bases.shape) < 0.004
+    bases[err] = (bases[err] + 1) % 4
+    lengths = np.full(len(starts), L, np.int32)
+    quals = np.full(bases.shape, 35, np.uint8)
+    quals[rng.random(bases.shape) < 0.002] = 2
+    jd, jhist = ke.count_kmers_device(bases, lengths, quals, k, min_freq=2,
+                                      chunk_reads=256, interpret=True)
+    # 4096-row tiles, 8 bins of ~512 rows: under the 896-row overflow
+    # threshold (2048-row tiles have 4 bins of ~512, 1024-row tiles 2
+    # bins: JAX's halving rule keeps slots at 1024 rows)
+    monkeypatch.setattr(radix, "DEFAULT_TILE_ROWS", 32)
+    monkeypatch.setattr(radix, "DEFAULT_REGION_ROWS", 64)
+    monkeypatch.setenv("W2RAP_SORT", "radix")
+    recounts = tke.RADIX_RECOUNTS
+    d, hist = tke.count_kmers_device(bases, lengths, quals, k, min_freq=2,
+                                     chunk_reads=256, device="cpu")
+    assert tke.RADIX_RECOUNTS == recounts
+    words, counts, ctx = state.dict_to_numpy(d)
+    assert d.size == jd.size > 0
+    np.testing.assert_array_equal(words, jd.words)
+    np.testing.assert_array_equal(counts, jd.counts)
+    np.testing.assert_array_equal(ctx, jd.ctx)
+    np.testing.assert_array_equal(hist, jhist)
+
+
+def test_radix_recounts_exactly_on_overflow(rng, monkeypatch):
+    """A kmer with more copies than a slot holds (poly-A reads) overflows
+    the partition sort, which falls back to the exact lax sort: the same
+    dictionary and histogram, one recount."""
+    from w2rap_contigger_tpu_torch.ops import radix
+
+    bases, lengths, quals = _reads(rng, 60)
+    bases[300:] = 0
+    want, whist = tke.count_kmers_device(bases, lengths, quals, 60, device="cpu")
+    monkeypatch.setattr(radix, "DEFAULT_TILE_ROWS", 16)
+    monkeypatch.setenv("W2RAP_SORT", "radix")
+    recounts = tke.RADIX_RECOUNTS
+    d, hist = tke.count_kmers_device(bases, lengths, quals, 60, device="cpu")
+    assert tke.RADIX_RECOUNTS == recounts + 1
+    assert torch.equal(d.words, want.words) and torch.equal(d.cnt, want.cnt)
+    assert np.array_equal(hist, whist)
+    monkeypatch.setenv("W2RAP_SORT", "pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tke.count_kmers_device(bases, lengths, quals, 60, device="cpu")
+
+
+@pytest.mark.parametrize("k,sort", [(200, "lax"), (260, "lax"), (260, "radix")])
+def test_count_kmers_flat_matches_jax(rng, monkeypatch, k, sort):
+    """Step 3's flat counting against the JAX package's count_kmers_flat:
+    segments of a genome (shared kmers across segments) and random ones,
+    some shorter than k."""
+    from w2rap_contigger_tpu_torch.ops import radix
+
+    genome = rng.integers(0, 4, size=6000).astype(np.uint8)
+    seqs = [genome[s : s + int(n)] for s, n in
+            zip(rng.integers(0, 3000, size=20), rng.integers(150, 3000, size=20))]
+    seqs += [rng.integers(0, 4, size=int(n)).astype(np.uint8)
+             for n in rng.integers(100, 900, size=6)]
+    seg = np.zeros(len(seqs) + 1, dtype=np.int64)
+    seg[1:] = np.cumsum([len(s) for s in seqs])
+    flat = np.concatenate(seqs)
+    jd = ke.count_kmers_flat(flat, seg, k, min_freq=1, device_pipeline=False)
+    monkeypatch.setattr(radix, "DEFAULT_TILE_ROWS", 32)
+    monkeypatch.setenv("W2RAP_SORT", sort)
+    recounts = tke.RADIX_RECOUNTS
+    d = tke.count_kmers_flat(flat, seg, k, min_freq=1, chunk_pos=4096, device="cpu")
+    assert tke.RADIX_RECOUNTS == recounts
+    words, counts, ctx = state.dict_to_numpy(d)
+    assert d.size == jd.size > 0 and counts.max() > 1
+    np.testing.assert_array_equal(words, jd.words)
+    np.testing.assert_array_equal(counts, jd.counts)
+    np.testing.assert_array_equal(ctx, jd.ctx)

@@ -53,7 +53,11 @@ def test_step2_cli_matches_jax_pipeline(fastq, tmp_path):
 def test_cli_refuses_what_is_not_ported(fastq, tmp_path, monkeypatch):
     out = str(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["-r", fastq, "-o", out, "--to_step", "3", "--device", "cpu"])
+        cli.main(["-r", fastq, "-o", out, "--to_step", "4", "--device", "cpu"])
+    monkeypatch.setenv("W2RAP_SORT", "pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli.main(["-r", fastq, "-o", out, "--to_step", "2", "--device", "cpu"])
+    monkeypatch.delenv("W2RAP_SORT")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(["-r", fastq, "-o", out, "--to_step", "2", "--device", "cpu",
                   "--fill_join"])
@@ -65,19 +69,21 @@ def test_cli_refuses_what_is_not_ported(fastq, tmp_path, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports with jax blocked (a subprocess:
-    this test process has jax loaded already)."""
+    """Every module of the port, and chip_smoke, imports with jax and the
+    JAX package both blocked (a subprocess: this test process has them
+    loaded already)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['w2rap_contigger_tpu'] = None\n"
         "import w2rap_contigger_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names + ['chip_smoke']: importlib.import_module(n)\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
-        "               if sys.modules[m] is not None)\n"
+        "assert not any(m.split('.')[0] in ('jax', 'w2rap_contigger_tpu')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print(len(names))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    assert int(res.stdout.strip()) >= 30

@@ -3,13 +3,16 @@
 The JAX package (`w2rap_contigger_tpu`) is the reference this port is
 held against; module names mirror it (`ops/`, `graph/`, `paths/`,
 `pipeline/`) so every module has an obvious counterpart.  The port runs
-step 2 (buildReadQGraph: small-k count, unitig graph, read paths) on an
-NVIDIA H100; the other steps are not ported yet (see ROADMAP.md).
+step 2 (buildReadQGraph: small-k count, unitig graph, read paths) and
+step 3 (RepathInMemory: the large-K graph and the translated read paths)
+on an NVIDIA H100; the other steps are not ported yet (see ROADMAP.md).
 
-Shared host code (FASTQ loading, the HBV and ReadPathVec checkpoint
-classes, path extension, validation, the g++ loader for the host C++
-leaves) is imported from the JAX package's jax-free modules, never
-copied.  Nothing here imports jax.
+The host code the port needs (FASTQ loading in `core/`, the HBV and
+ReadPathVec checkpoint classes, path extension, validation, the numpy
+kmer words in `ops/np_bitkmer.py`, the TIMELOG timers in `utils/`, the
+g++ loader of the host C++ leaves in `native/`) is copied from the JAX
+package under the same relative names.  Nothing here imports jax or the
+JAX package.
 
 u32 convention.  torch.uint32 lacks `<`, shifts, `~`, `+` and
 searchsorted, so:

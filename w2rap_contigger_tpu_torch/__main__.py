@@ -3,19 +3,24 @@ plus --device.
 
 Usage:
   python -m w2rap_contigger_tpu_torch -r r1.fastq,r2.fastq -o out_dir \\
-      --to_step 2 [--device cuda|cpu] [-p prefix] [--dump_perf] ...
+      --to_step 3 [-K 200|260|...] [--device cuda|cpu] [-p prefix] ...
 
-Only steps 1 and 2 are ported; --to_step above 2 raises
-NotImplementedError.  --device cuda (the default) needs a card and never
-falls back to the CPU; --device cpu runs the plain PyTorch versions of
-the kernels and exists for the tests.
+Steps 1-3 are ported; --to_step above 3 raises NotImplementedError.
+--device cuda (the default) needs a card and never falls back to the
+CPU; --device cpu runs the plain PyTorch versions of the kernels and
+exists for the tests.  W2RAP_SORT=lax|radix picks the counting sort of
+steps 2 and 3, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from .shared import ALLOWED_K
+ALLOWED_K = [
+    60, 64, 72, 80, 84, 88, 96, 100, 108, 116, 128, 136, 144, 152, 160,
+    168, 172, 180, 188, 192, 196, 200, 208, 216, 224, 232, 240, 260,
+    280, 300, 320, 368, 400, 440, 460, 500, 544, 640,
+]  # reference allowed_k (w2rap-contigger.cc:60-62)
 
 
 def parse_args(argv=None):
@@ -56,12 +61,12 @@ def parse_args(argv=None):
     ap.add_argument("--heuristics", default="",
                     help="NAME=value,... overrides (long_heuristics analogue)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="device of step 2 (cpu: plain PyTorch, for tests)")
+                    help="device of steps 2-3 (cpu: plain PyTorch, for tests)")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
-    """Run the CLI; returns step 2's (hbv, paths, dict)."""
+    """Run the CLI; returns the last step's (hbv, paths, dict)."""
     args = parse_args(argv)
     if args.large_k not in ALLOWED_K:
         raise SystemExit(
@@ -79,7 +84,7 @@ def main(argv=None):
     if args.heuristics:
         import dataclasses
 
-        from .shared import config as _cfg
+        from . import config as _cfg
 
         heur = _cfg.parse_heuristics(args.heuristics)
         for f in dataclasses.fields(heur):
@@ -91,6 +96,7 @@ def main(argv=None):
         out_dir=args.out_dir,
         read_spec=args.read_files,
         prefix=args.prefix,
+        large_k=args.large_k,
         from_step=args.from_step,
         to_step=args.to_step,
         min_freq=args.min_freq,
@@ -101,6 +107,7 @@ def main(argv=None):
         max_mem_gb=args.max_mem,
         disk_batches=args.disk_batches,
         tmp_dir=args.tmp_dir,
+        extend_paths=args.extend_paths,
         fill_join=args.fill_join,
         device=args.device,
     )

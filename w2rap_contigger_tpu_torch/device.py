@@ -12,11 +12,14 @@ from contextlib import contextmanager
 
 import torch
 
-from .shared import sysinfo
+from .utils import sysinfo
 
 # kernel name -> launches since the last reset; each wrapper adds one
 # where it launches its kernel and nowhere else
-LAUNCHES: dict[str, int] = {"kmerize": 0, "collapse": 0}
+LAUNCHES: dict[str, int] = {
+    "kmerize": 0, "collapse": 0, "radix_tile_sort": 0, "radix_partition": 0,
+    "radix_region_sort": 0, "radix_merge_pass": 0,
+}
 
 
 def reset_launches() -> None:

@@ -28,9 +28,9 @@ import torch
 from ..device import timed
 from ..ops import bitkmer as bk
 from ..ops import context as kctx
+from ..ops import np_bitkmer as hbk
 from ..ops.lookup import n_iters_for, search
-from ..shared import HyperBasevector
-from ..shared import np_bitkmer as hbk
+from .hbv import HyperBasevector
 
 # nodes per links/adjacency dispatch: bounds the (nodes, W) neighbour
 # planes each pass materializes (build.py:391)
@@ -165,12 +165,13 @@ def _oriented_kmer_words(words, rcw, node_ids, M):
     return np.where(ori[:, None], rcw[kid], words[kid])
 
 
-def build_unitigs(d):
+def build_unitigs(d, span: str = "step2.unitigs"):
     """Canonical unitig edge set from the dictionary.
 
     Returns (edge_bases flat uint8, edge_start (E+1) int64) and fills the
     KDef planes d.edge_id / d.edge_offset / d.edge_rc (host numpy) and
-    d.kdef (their device copies, for pathing).
+    d.kdef (their device copies, for pathing).  The device part (links,
+    list ranking, download) is timed as `<span>.device`.
     """
     M = d.size
     k = d.k
@@ -182,7 +183,7 @@ def build_unitigs(d):
         d.kdef = _kdef_to_device(d, dev)
         return np.zeros(0, np.uint8), np.zeros(1, np.int64)
 
-    with timed("step2.unitigs.device", dev):
+    with timed(f"{span}.device", dev):
         nxt_d = build_links(d.words, d.ctx, k, n_iters_for(M))
         head_d, rank_d, cyc_d = list_rank(nxt_d, rank_iters_for(M))
         nxt = nxt_d.cpu().numpy().astype(np.int32)

@@ -1,25 +1,29 @@
-"""Device-resident kmer counting: K1 kmerize -> torch sort -> K2 collapse.
+"""Device-resident kmer counting: kmerize -> sort -> K2 collapse.
 
-Counterpart of w2rap_contigger_tpu/ops/kmer_engine.py:996-1207 (the
-on-device counting path) and of its step entry count_kmers_batched
-(:1433).  The chain, per the reference's createDictOMPRecursive
+Counterpart of w2rap_contigger_tpu/ops/kmer_engine.py:635-833 (flat
+counting, step 3) and :996-1287 (the on-device counting path shared by
+steps 2 and 3), and of the step-2 entry count_kmers_batched (:1433).
+The chain, per the reference's createDictOMPRecursive
 (src/paths/long/BuildReadQGraph.cc:1015-1110):
 
   reads --host pack (C++)--> packed rows + usable lengths, per chunk
         --K1 kmerize--> canonical word planes + context plane
-        --pack into int64 keys, ctx riding in the last word's pad bits
-          when >= 8 are free (kmer_engine.py:970-986)-->
-        --two stable torch.sort passes, least significant key first-->
+  (step 3: place sequences --torch kmerize_flat--> the same planes)
+        --the stream: W word planes, ctx riding in the last word's pad
+          bits when >= 8 are free (kmer_engine.py:970-986), else a
+          payload plane (ctx << 8) | 1-->
+        --sort, W2RAP_SORT=lax (default): stable torch.sort passes over
+          int64 keys, least significant first (lax.sort in JAX);
+          W2RAP_SORT=radix: the partition sort K4a-d, with an exact lax
+          recount on slot overflow or comparator collision-->
         --K2 collapse--> per-tile compacted (kmer, ctx, cnt) rows
         --global compaction (torch gather, _compact_planes_dev :1293)-->
         sorted dictionary + 101-bin histogram (low bins from K2, :1399)
-
-The sort is lax.sort in the JAX package, outside any Pallas kernel, so
-here it is a library sort.
 """
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -27,8 +31,10 @@ import torch
 
 from ..device import resolve_device, timed
 from . import bitkmer as bk
+from . import context as kctx
+from . import radix
 from .collapse import TILE, collapse
-from .kmerize import kmerize, pack_and_glen_host
+from .kmerize import kmerize, pack_and_glen_host, pack_rows_host
 
 
 class KmerDict:
@@ -111,9 +117,176 @@ def sort_stream(keys: list[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
+# ---------------------------------------------------------------------------
+# the counting stream and its sort back ends (kmer_engine.py:1119-1287)
+# ---------------------------------------------------------------------------
+
+RADIX_RECOUNTS = 0  # radix sorts that fell back to the exact lax recount
+
+
+def sort_backend() -> str:
+    """W2RAP_SORT: "lax" (default; the library sort, lax.sort in JAX) or
+    "radix" (the partition sort, K4a-d).  "pallas" (the bitonic sort,
+    K3a/b) is not ported yet and raises."""
+    backend = os.environ.get("W2RAP_SORT", "lax")
+    if backend == "pallas":
+        raise NotImplementedError(
+            "W2RAP_SORT=pallas (the bitonic sort K3a/b, ops/pallas_sort.py) is "
+            "not ported yet; see ROADMAP.md"
+        )
+    if backend not in ("lax", "radix"):
+        raise ValueError(f"W2RAP_SORT={backend!r}: lax, radix or pallas")
+    return backend
+
+
+def _use_radix(backend: str, n_rows: int) -> bool:
+    # the partition setup is not worth it on tiny inputs (:1136-1137)
+    return backend == "radix" and n_rows >= 4 * radix.DEFAULT_TILE_ROWS * radix.LANES
+
+
+class Stream:
+    """The counting stream: the valid kmers of up to `capacity` windows
+    as W word planes of raw u32 bits, with ctx in the last word's pad
+    bits when >= 8 are free (kmer_engine.py:970-986), else W words + a
+    payload plane (ctx << 8) | 1.
+
+    Invalid windows (all-ones words) are dropped as they arrive: they
+    never reach the dictionary, and the sort has fewer rows to move.  The
+    JAX package keeps them as sentinel rows; the rows the sort sees are
+    the port's own (its row order already differs).
+
+    The radix back end needs whole tiles.  Its padding rows (sentinels:
+    all-ones words, payload 0) are spread over the tiles, a few at the
+    end of each: JAX's splitters take the samples of rank b * n_tiles - 1,
+    so tiles whose samples sit apart (one tile mostly of padding, or tiles
+    with more invalid windows than others) push the splitters into the
+    next sample group and nearly double some bins' loads against the
+    slot's overflow threshold.
+
+    Under radix, ctx also never rides in a comparator word (W <= 4):
+    there the splitters would see the context bits, and a splitter
+    falling between two contexts of one kmer would cut the kmer across
+    two bins (two dictionary rows).  JAX's radix branch does ride it
+    there (:1253-1262, comparator words at W <= 2).
+    """
+
+    def __init__(self, capacity: int, W: int, k: int, backend: str, dev):
+        self.W = W
+        self.backend = backend
+        self.ctx_in_pad = 2 * (16 * W - k) >= 8 and not (
+            backend == "radix" and W <= radix.MAX_CMP_KEYS)
+        self.buf = torch.empty((W if self.ctx_in_pad else W + 1, capacity),
+                               dtype=torch.int32, device=dev)
+        self.n = 0
+
+    def put(self, words: torch.Tensor, ctx: torch.Tensor) -> None:
+        """Append the valid kmers of a chunk: words (W, m) and ctx (m,) as
+        raw int32 bits, all-ones words where the window is invalid."""
+        W = self.W
+        valid = ~(words == -1).all(dim=0)
+        if self.ctx_in_pad:
+            rows = torch.cat([words[: W - 1], (words[W - 1] | ctx)[None]])
+        else:
+            rows = torch.cat([words, ((ctx << 8) | 1)[None]])
+        rows = rows[:, valid]
+        m = rows.shape[1]
+        self.buf[:, self.n : self.n + m] = rows
+        self.n += m
+
+    def planes(self) -> tuple[torch.Tensor, bool]:
+        """(planes, radix): the contiguous stream for the sort, and whether
+        the partition sort takes it (whole tiles, padding spread)."""
+        buf, n = self.buf, self.n
+        self.buf = None
+        if not _use_radix(self.backend, n):
+            return buf[:, :n], False
+        T = radix.DEFAULT_TILE_ROWS * radix.LANES
+        n_pad = -(-n // T) * T
+        planes = torch.empty((buf.shape[0], n_pad), dtype=torch.int32, device=buf.device)
+        if n_pad == n:
+            planes.copy_(buf[:, :n])
+            return planes, True
+        planes[: self.W] = -1
+        planes[self.W :] = 0
+        n_tiles = n_pad // T
+        q, rem = divmod(n_pad - n, n_tiles)
+        # tiles < rem keep T-q-1 real rows at their front, the others T-q
+        b0 = rem * (T - q - 1)
+        i = torch.arange(n, device=buf.device)
+        t = torch.where(i < b0, i // (T - q - 1), rem + (i - b0) // (T - q))
+        planes[:, i + t * q + torch.clamp(t, max=rem)] = buf[:, :n]
+        return planes, True
+
+
+def _strip_ctx(sp: torch.Tensor) -> torch.Tensor:
+    """(W, n) sorted planes with ctx in the pad bits -> (W+1, n) planes
+    with the payload plane; sentinel rows were all-ones before."""
+    W, n = sp.shape
+    out = torch.empty((W + 1, n), dtype=torch.int32, device=sp.device)
+    out[: W - 1] = sp[: W - 1]
+    last = bk.from_raw32(sp[W - 1])
+    w_last = last & (bk.FULL ^ 0xFF)
+    sent = (w_last == (bk.FULL ^ 0xFF)) & (sp[: W - 1] == -1).all(dim=0)
+    out[W - 1] = bk.to_raw32(torch.where(sent, bk.FULL, w_last))
+    out[W] = bk.to_raw32(torch.where(sent, 0, ((last & 0xFF) << 8) | 1))
+    return out
+
+
+def _lax_sorted(planes: torch.Tensor, W: int, ctx_in_pad: bool) -> torch.Tensor:
+    """Exact sort on every word: stable torch.sort passes over int64 keys
+    of two words each, least significant first."""
+    words = [bk.from_raw32(planes[j]) for j in range(W)]
+    keys = [bk.pair_key(words[i[0]], words[i[1]]) if len(i) == 2 else words[i[0]]
+            for i in _sort_keys(W)]
+    del words
+    perm = sort_stream(keys)
+    del keys
+    sp = planes[:, perm]
+    return _strip_ctx(sp) if ctx_in_pad else sp
+
+
+def _radix_sorted(planes: torch.Tensor, W: int, ctx_in_pad: bool):
+    """Partition sort (K4a-d) on the first min(W, 4) words; None when a
+    slot overflowed or two distinct kmers tie on those words, and the
+    caller must recount exactly (kmer_engine.py:1161-1172, :1244-1287).
+
+    JAX compares 2 words; the port compares 4 (128 bits), which covers
+    every kmer up to k=64: at k=60 on reads with errors, distinct kmers
+    sharing their first 32 bases are common, so a 2-word comparator
+    would raise the collision flag on nearly every data set."""
+    global RADIX_RECOUNTS
+    cmp_keys = min(W, radix.MAX_CMP_KEYS)
+    sp, overflow = radix.partition_sort(planes, num_keys=W, cmp_keys=cmp_keys)
+    if ctx_in_pad:
+        sp = _strip_ctx(sp)
+    # on ctx-stripped words: equal kmers with other contexts do not collide
+    bad = radix.collision_flag(sp, num_keys=W, cmp_keys=cmp_keys)
+    if int(overflow[0]) or int(bad):
+        RADIX_RECOUNTS += 1
+        return None
+    return sp
+
+
+def count_epilogue(stream: Stream, k: int, min_freq: int, span: str):
+    """Sort + K2 collapse + compaction of a filled stream: (KmerDict,
+    hist).  Shared by steps 2 and 3 (kmer_engine.py:1119-1207)."""
+    W, ctx_in_pad = stream.W, stream.ctx_in_pad
+    dev = stream.buf.device
+    with timed(f"{span}.sort", dev):
+        planes, use_radix = stream.planes()
+        if planes.shape[1] == 0:
+            return empty_dict(k, dev), np.zeros(101, dtype=np.int64)
+        sp = _radix_sorted(planes, W, ctx_in_pad) if use_radix else None
+        if sp is None:
+            sp = _lax_sorted(planes, W, ctx_in_pad)
+        del planes
+    with timed(f"{span}.collapse", dev):
+        return dict_from_collapsed(collapse(sp, min_count=min_freq), W, k, min_freq)
+
+
 def count_kmers_device(bases, lengths, quals, k: int, min_qual: int = 7,
                        min_freq: int = 4, chunk_reads: int = 65536,
-                       device="cuda"):
+                       device="cuda", span: str = "step2.count"):
     """Count canonical kmers on `device`; returns (KmerDict, hist).
 
     hist is the small_K.freqs histogram: hist[c] = distinct kmers with
@@ -125,13 +298,10 @@ def count_kmers_device(bases, lengths, quals, k: int, min_qual: int = 7,
     W = bk.nwords(k)
     if L < k or n == 0:
         return empty_dict(k, dev), np.zeros(101, dtype=np.int64)
+    backend = sort_backend()
     P = L - k + 1
     n_rows = n * P
-    pad_bits = 2 * (16 * W - k)
-    ctx_in_pad = pad_bits >= 8
-    key_words = _sort_keys(W)
-    keys = [torch.empty(n_rows, dtype=torch.int64, device=dev) for _ in key_words]
-    payload = None if ctx_in_pad else torch.empty(n_rows, dtype=torch.int64, device=dev)
+    stream = Stream(n_rows, W, k, backend, dev)
 
     def host_chunk(start):
         stop = min(start + chunk_reads, n)
@@ -146,49 +316,16 @@ def count_kmers_device(bases, lengths, quals, k: int, min_qual: int = 7,
     starts = list(range(0, n, chunk_reads))
     # double buffer: chunk i+1's host pack + upload runs on a worker
     # thread while chunk i's kernels run
-    with timed("step2.count.kmerize", dev), ThreadPoolExecutor(max_workers=1) as pool:
+    with timed(f"{span}.kmerize", dev), ThreadPoolExecutor(max_workers=1) as pool:
         fut = pool.submit(host_chunk, starts[0])
         for ci, start in enumerate(starts):
             pr_d, glen_d = fut.result()
             if ci + 1 < len(starts):
                 fut = pool.submit(host_chunk, starts[ci + 1])
-            x = bk.from_raw32(kmerize(pr_d, glen_d, k, L))
-            lo, hi = start * P, start * P + x.shape[1]
-            ctx = x[W]
-            if ctx_in_pad:
-                x[W - 1] |= ctx
-            else:
-                valid = ~(x[:W] == bk.FULL).all(dim=0)
-                payload[lo:hi] = torch.where(valid, (ctx << 8) | 1, 0)
-            for key, idx in zip(keys, key_words):
-                key[lo:hi] = bk.pair_key(x[idx[0]], x[idx[1]]) if len(idx) == 2 else x[idx[0]]
+            x = kmerize(pr_d, glen_d, k, L)
+            stream.put(x[:W], x[W])
             del x
-
-    with timed("step2.count.sort", dev):
-        perm = sort_stream(keys)
-        planes = torch.empty((W + 1, n_rows), dtype=torch.int32, device=dev)
-        for key, idx in zip(keys, key_words):
-            s = key[perm]
-            if len(idx) == 2:
-                planes[idx[0]] = bk.to_raw32(((s >> 32) & bk.FULL) ^ bk.SIGN)
-                planes[idx[1]] = bk.to_raw32(s & bk.FULL)
-            else:
-                planes[idx[0]] = bk.to_raw32(s)
-        del keys
-        if ctx_in_pad:
-            # strip ctx from the pad bits; sentinel rows were all-ones before
-            last = bk.from_raw32(planes[W - 1])
-            w_last = last & (bk.FULL ^ 0xFF)
-            sent = w_last == (bk.FULL ^ 0xFF)
-            for j in range(W - 1):
-                sent &= planes[j] == -1
-            planes[W] = bk.to_raw32(torch.where(sent, 0, ((last & 0xFF) << 8) | 1))
-            planes[W - 1] = bk.to_raw32(torch.where(sent, bk.FULL, w_last))
-        else:
-            planes[W] = bk.to_raw32(payload[perm])
-        del perm, payload
-    with timed("step2.count.collapse", dev):
-        return dict_from_collapsed(collapse(planes, min_count=min_freq), W, k, min_freq)
+    return count_epilogue(stream, k, min_freq, span)
 
 
 def compact_tiles(out: torch.Tensor, tile_counts: torch.Tensor, tile: int):
@@ -243,3 +380,80 @@ def count_kmers_batched(bases, lengths, quals, k: int, min_qual: int = 7,
         bases, lengths, quals, k, min_qual=min_qual, min_freq=min_freq,
         chunk_reads=chunk_reads, device=device,
     )
+
+
+# ---------------------------------------------------------------------------
+# flat counting (step 3's place sequences, kmer_engine.py:635-833)
+# ---------------------------------------------------------------------------
+
+
+def kmerize_flat(packed, valid, has_pred, has_succ, pred_code, succ_code, k: int):
+    """Canonical kmers of a flat chunk (_kmerize_flat_impl, :635-655;
+    XLA there, so plain torch here on every device).
+
+    packed (1, WR) int64 u32 rows of the chunk's bases plus a halo; the
+    masks and context bases (C,) come from the host's segment bounds.
+    Returns (words (W, C), ctx (C,)) as raw int32 bits, all-ones words
+    and ctx 0 where invalid."""
+    C = valid.shape[0]
+    words = bk.kmer_windows(packed, k, C)[0]
+    ctx = kctx.make_context(pred_code, succ_code, has_pred.to(torch.int64),
+                            has_succ.to(torch.int64))
+    canon, is_rev = bk.canonicalize(words, k)
+    ctx = torch.where(is_rev, kctx.rc_context(ctx), ctx)
+    canon = torch.where(valid[:, None], canon, bk.FULL)
+    ctx = torch.where(valid, ctx, 0)
+    return bk.to_raw32(canon.T), bk.to_raw32(ctx)
+
+
+def count_kmers_flat(flat_bases, seg_offsets, k: int, min_freq: int = 1,
+                     chunk_pos: int | None = None, device="cuda",
+                     span: str = "step3.count"):
+    """Count canonical kmers over concatenated sequences (:663-833, its
+    device pipeline branch :783-824); returns the KmerDict.
+
+    flat_bases (T,) uint8 codes of all sequences back to back;
+    seg_offsets (S+1,) int64 bounds.  No kmer spans two sequences; a
+    kmer's context bases stop at its sequence's ends."""
+    dev = resolve_device(device)
+    if chunk_pos is None:
+        chunk_pos = (1 << 21) if k <= 64 else (1 << 19)
+    flat_bases = np.asarray(flat_bases, dtype=np.uint8)
+    seg_offsets = np.asarray(seg_offsets, dtype=np.int64)
+    T = len(flat_bases)
+    W = bk.nwords(k)
+    if T < k:
+        return empty_dict(k, dev)
+    backend = sort_backend()
+    n_pos = T - k + 1
+    # segment bounds of every position (host, :718-721)
+    seg_of = np.searchsorted(seg_offsets, np.arange(n_pos), side="right") - 1
+    seg_end = seg_offsets[seg_of + 1]
+    seg_start = seg_offsets[seg_of]
+    halo = 16 * ((k + 15) // 16)
+    stream = Stream(n_pos, W, k, backend, dev)
+
+    def upload(x, dtype=torch.int64):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dtype).to(dev)
+
+    with timed(f"{span}.kmerize", dev):
+        for st in range(0, n_pos, chunk_pos):
+            C = min(chunk_pos, n_pos - st)
+            cb = np.zeros(C + halo, dtype=np.uint8)
+            avail = min(T - st, C + halo)
+            cb[:avail] = flat_bases[st : st + avail]
+            pos = np.arange(st, st + C)
+            end = seg_end[st : st + C]
+            valid = pos + k <= end
+            hp = valid & (pos > seg_start[st : st + C])
+            hs = valid & (pos + k < end)
+            pc = flat_bases[np.maximum(pos - 1, 0)]
+            sc = flat_bases[np.minimum(pos + k, T - 1)]
+            packed = bk.from_raw32(upload(pack_rows_host(cb[None]).view(np.int32), torch.int32))
+            words, ctx = kmerize_flat(
+                packed, upload(valid, torch.bool), upload(hp, torch.bool),
+                upload(hs, torch.bool), upload(pc), upload(sc), k,
+            )
+            stream.put(words, ctx)
+    d, _hist = count_epilogue(stream, k, min_freq, span)
+    return d

@@ -13,7 +13,7 @@ another permutation, so the two are compared as multisets.
 
 The host-side packing (`pack_rows_host`, `good_lengths_host`,
 `pack_and_glen_host`) is copied from pallas_kmer.py:151-216 and uses
-the shared g++ loader for native/pack_kernel.cc.
+the port's g++ loader for native/pack_kernel.cc.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import device as tdev
-from ..shared import native
+from .. import native
 from . import _build
 from . import bitkmer as bk
 from . import context as kctx

@@ -1,0 +1,125 @@
+"""Pathing of exact sequences (flat layout) through an HBV.
+
+Counterpart of w2rap_contigger_tpu/paths/flat_pather.py: step 3 walks
+each place sequence through the freshly built large-K graph.  Every place
+sequence is by construction a walk in the graph, so a dense per-position
+dictionary lookup run-decodes directly into the edge list and the
+start/stop offsets (the reference's KmerPath interval translation,
+Repath.cc:140-196).
+
+`lookup_flat_core` is the torch form of `_lookup_flat_core` (:23-40): the
+port's batched binary search (`ops.lookup.search`) on the dictionary's
+device, chunk by chunk as the device route (:164-212) runs it.  The
+segment decode (:214-251) is host numpy, copied.  `mesh` and the native
+C++ route are not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import timed
+from ..ops import bitkmer as bk
+from ..ops.kmerize import pack_rows_host
+from ..ops.lookup import n_iters_for, search
+
+
+def lookup_flat_core(packed, table_t, kdef_edge, kdef_off, kdef_rc,
+                     fwd_xlat, rev_xlat, ekm, k: int, n_iters: int, C: int):
+    """Oriented HBV edge (-1 where the kmer is absent) and kmer offset on
+    it for the C windows of one packed chunk (1, WR) int64."""
+    words = bk.kmer_windows(packed, k, C)[0]
+    canon, is_rev = bk.canonicalize(words, k)
+    idx, found = search(table_t, canon.T, n_iters)
+    e0 = kdef_edge[idx]
+    off0 = kdef_off[idx]
+    rc = is_rev ^ kdef_rc[idx]
+    hbv_e = torch.where(rc, rev_xlat[e0], fwd_xlat[e0])
+    ekm_e = ekm[e0]
+    off = torch.where(rc, ekm_e - 1 - off0, off0)
+    return torch.where(found, hbv_e, -1), off
+
+
+def path_flat_sequences(flat_bases, seg_offsets, d, hbv, fwd_xlat, rev_xlat,
+                        chunk_pos: int | None = None, span: str = "step3.pathing"):
+    """Walk each segment through the graph.
+
+    Returns (paths: list of np.int32 arrays, starts (S,) int32, stops (S,)
+    int32): starts = base offset of the segment on its first edge, stops =
+    bases of the last edge after the segment's final kmer (Repath.cc
+    starts/stops semantics, Repath.cc:196-200).  Segments shorter than k
+    or with a kmer missing from the dictionary get empty paths.
+    """
+    k = d.k
+    if chunk_pos is None:
+        chunk_pos = (1 << 21) if k <= 64 else (1 << 19)
+    T = len(flat_bases)
+    S = len(seg_offsets) - 1
+    n_pos = max(T - k + 1, 0)
+    all_e = np.full(n_pos, -1, dtype=np.int32)
+    all_o = np.zeros(n_pos, dtype=np.int32)
+    if n_pos > 0 and d.size > 0:
+        dev = d.device
+        table_t = d.table_t()
+        n_iters = n_iters_for(d.size)
+        kdef_edge, kdef_off, kdef_rc = d.kdef
+
+        def upload(x):
+            return torch.from_numpy(np.asarray(x, dtype=np.int64)).to(dev)
+
+        fx, rx = upload(fwd_xlat), upload(rev_xlat)
+        ekm_canon = upload((np.diff(hbv.edge_start) - k + 1)[fwd_xlat])
+        halo = 16 * ((k + 15) // 16)
+        with timed(f"{span}.lookup", dev):
+            for s in range(0, n_pos, chunk_pos):
+                C = min(chunk_pos, n_pos - s)
+                cb = np.zeros(C + halo, dtype=np.uint8)
+                avail = min(T - s, C + halo)
+                cb[:avail] = flat_bases[s : s + avail]
+                packed = bk.from_raw32(
+                    torch.from_numpy(pack_rows_host(cb[None]).view(np.int32)).to(dev)
+                )
+                he, off = lookup_flat_core(packed, table_t, kdef_edge, kdef_off,
+                                           kdef_rc, fx, rx, ekm_canon, k, n_iters, C)
+                all_e[s : s + C] = he.cpu().numpy()
+                all_o[s : s + C] = off.cpu().numpy()
+
+    # ---- segment decode, vectorized over all segments at once ---------
+    kmers_b = np.diff(hbv.edge_start) - k + 1
+    starts = np.zeros(S, dtype=np.int32)
+    stops = np.zeros(S, dtype=np.int32)
+    seg_a = seg_offsets[:-1].astype(np.int64)
+    seg_np = np.maximum(seg_offsets[1:] - seg_a - k + 1, 0)
+    # flat index ranges of each segment's positions
+    tot = int(seg_np.sum())
+    if tot == 0:
+        return [np.zeros(0, np.int32) for _ in range(S)], starts, stops
+    sid = np.repeat(np.arange(S), seg_np)
+    within = np.arange(tot) - np.repeat(np.cumsum(seg_np) - seg_np, seg_np)
+    gpos = np.repeat(seg_a, seg_np) + within
+    e = all_e[gpos]
+    o = all_o[gpos]
+    # a segment is walkable iff every position hit the dictionary
+    seg_ok = np.ones(S, dtype=bool)
+    np.logical_and.at(seg_ok, sid, e >= 0)
+    first = within == 0
+    newrun = first | (
+        np.concatenate([[True], (e[1:] != e[:-1]) | (o[1:] != o[:-1] + 1)])
+    )
+    runs = newrun & seg_ok[sid]
+    run_idx = np.flatnonzero(runs)
+    pool = e[run_idx].astype(np.int32)
+    pc = np.zeros(S, dtype=np.int64)
+    np.add.at(pc, sid[run_idx], 1)
+    poff = np.zeros(S + 1, dtype=np.int64)
+    poff[1:] = np.cumsum(pc)
+    paths = [pool[poff[si] : poff[si + 1]] for si in range(S)]
+    # starts/stops from each valid segment's first/last position
+    lastpos = np.cumsum(seg_np) - 1
+    firstpos = lastpos - seg_np + 1
+    has = (seg_np > 0) & seg_ok
+    starts[has] = o[firstpos[has]]
+    e_last = e[lastpos[has]]
+    stops[has] = kmers_b[e_last] - 1 - o[lastpos[has]]
+    return paths, starts, stops

@@ -22,10 +22,10 @@ import torch
 
 from ..device import timed
 from ..ops import bitkmer as bk
+from ..ops import np_bitkmer as hbk
 from ..ops.kmerize import pack_rows_host
 from ..ops.lookup import n_iters_for, search
-from ..shared import ReadPathVec
-from ..shared import np_bitkmer as hbk
+from .read_paths import ReadPathVec
 
 MAX_JITTER = 3  # BuildReadQGraph.cc:831
 RUN_SLOTS = 24  # per-read run-start capacity of the compact download

@@ -1,11 +1,12 @@
-"""Pipeline driver of the port: steps 1 and 2 with the JAX package's
+"""Pipeline driver of the port: steps 1-3 with the JAX package's
 checkpoints.
 
-Counterpart of w2rap_contigger_tpu/pipeline/driver.py:52-247.  Step 1
-is the shared host `extract_reads`; step 2 runs on `device` through
-this package.  Later steps are not ported yet and raise.  Outputs have
-the JAX package's names and formats: frag_reads_orig.npz,
-small_K.freqs, <p>.small_K.hbv.npz / .paths.npz and <p>.perf.
+Counterpart of w2rap_contigger_tpu/pipeline/driver.py:52-157.  Step 1
+is host `extract_reads`; steps 2 and 3 run on `device` through this
+package.  Later steps are not ported yet and raise.  Outputs have the JAX
+package's names and formats: frag_reads_orig.npz, small_K.freqs,
+<p>.small_K.hbv.npz / .paths.npz (step 2), <p>.large_K.hbv.npz /
+.paths.npz (step 3) and <p>.perf.
 """
 
 from __future__ import annotations
@@ -13,11 +14,15 @@ from __future__ import annotations
 import os
 import time
 
+from ..core.io_fastq import extract_reads
+from ..core.reads import ReadSet
 from ..device import resolve_device
-from ..shared import ReadSet, extract_reads, sysinfo
-from . import step2_small_k
+from ..graph.hbv import HyperBasevector
+from ..paths.read_paths import ReadPathVec
+from ..utils import sysinfo
+from . import step2_small_k, step3_repath
 
-LAST_PORTED_STEP = 2
+LAST_PORTED_STEP = 3
 
 
 class PerfLog:
@@ -47,8 +52,9 @@ def run_pipeline(
     read_spec: str | None = None,
     reads: ReadSet | None = None,
     prefix: str = "pe",
+    large_k: int = 200,
     from_step: int = 1,
-    to_step: int = 2,
+    to_step: int = 3,
     min_freq: int = 4,
     min_qual: int = 7,
     dump_all: bool = False,
@@ -58,11 +64,12 @@ def run_pipeline(
     max_mem_gb: int = 10000,
     disk_batches: int = 0,
     tmp_dir: str | None = None,
+    extend_paths: bool = False,
     fill_join: bool = False,
     device="cuda",
 ):
-    """Run steps from_step..to_step (1..2) on `device`; returns (hbv,
-    paths, dict) of step 2, or Nones when step 2 did not run."""
+    """Run steps from_step..to_step (1..3) on `device`; returns (hbv,
+    paths, dict) of the last step that ran (Nones after step 1 alone)."""
     if to_step > LAST_PORTED_STEP or from_step > LAST_PORTED_STEP:
         raise NotImplementedError(
             f"steps {LAST_PORTED_STEP + 1}-7 are not ported yet "
@@ -106,6 +113,18 @@ def run_pipeline(
             hbv.save(f"{p}.small_K.hbv.npz")
             paths.save(f"{p}.small_K.paths.npz")
         perf.checkpoint("SmallKGraph")
+    elif from_step == 3:
+        hbv = HyperBasevector.load(f"{p}.small_K.hbv.npz")
+        paths = ReadPathVec.load(f"{p}.small_K.paths.npz")
+
+    if from_step <= 3 <= to_step:
+        hbv, paths, d = step3_repath.repath(
+            hbv, paths, large_k, extend_paths=extend_paths, device=dev
+        )
+        if dump_all or to_step == 3:
+            hbv.save(f"{p}.large_K.hbv.npz")
+            paths.save(f"{p}.large_K.paths.npz")
+        perf.checkpoint("RepathInMemory")
 
     if sysinfo.timelog_enabled():
         rep = sysinfo.timelog_report()

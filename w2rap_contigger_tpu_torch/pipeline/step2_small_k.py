@@ -13,7 +13,7 @@ from ..device import resolve_device, timed
 from ..graph import build as gb
 from ..ops import kmer_engine as ke
 from ..paths import pather
-from ..shared import extend
+from ..paths import extend
 
 
 def build_read_q_graph(

@@ -4,8 +4,8 @@ The JAX package's KmerDict exposes host numpy arrays (words (m, W) u32,
 counts (m,) i32, ctx (m,) u32); the port's KmerDict holds device
 tensors.  These two functions convert, so both packages' graph and
 pathing stages can start from one dictionary.  The step checkpoints need
-no converter: both packages save them through the same HyperBasevector
-and ReadPathVec classes.
+no converter: the port's HyperBasevector and ReadPathVec are copies of
+the JAX package's classes and read and write the same npz files.
 """
 
 from __future__ import annotations
