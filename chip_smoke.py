@@ -21,21 +21,36 @@ exits non-zero and prints no result line:
    leading int64 key as the library yardstick; plus a skewed stream and
    one with real rows all ones in the comparator words, which must both
    raise the overflow flag;
+3c. K3a, the cross stage and K3b (the bitonic sort) against their plain
+   versions, phase by phase and whole, bit-identical: (a) step 2's shape,
+   2^28 rows of 4 key words + payload; (b) step 3's, the power of two
+   above phase 6's K2 rows, 17 key words + payload; each kernel's mean
+   time a launch in one in-place sort, its launches in that sort, its
+   plain version's time, its bound (a cross pass: the key words its pairs
+   compare and the rows it swaps, counted on the data), one stable
+   torch.sort of the leading int64 key as the library yardstick, and the
+   in-place sort's peak device memory;
 4. step 2 through the port's CLI entry on a 200 kb genome / 24k PE250
    pairs, --device cuda against --device cpu: small_K.freqs, HBV and
    paths must be identical;
-4b. steps 1-3 (K=200) at 200 kb, --device cuda against --device cpu:
-   the small_K and large_K checkpoints must be identical;
+4b. steps 1-4 (K=200, --min_freq 2) at 200 kb under W2RAP_SORT=pallas,
+   --device cuda against --device cpu: the small_K, large_K and
+   large_K.clean checkpoints must be identical, every K3 kernel launched,
+   and Clean200x must delete edges (the kept sequencing errors branch the
+   graph); its seconds printed;
 5. step 2 at E. coli scale (4.6 Mbp, 550k PE250 pairs, seed 42) on the
    card with W2RAP_TIMELOG=1: both kernels launched, graph and paths
    validated, step split and peak device memory printed;
-6. steps 1-3 at E. coli scale with K=260 on the card, twice: W2RAP_SORT=
-   lax, then radix.  The checkpoints of both runs must be identical, every
-   K4 kernel launched in step 2 and in step 3 of the radix run with no
-   exact recount, HBV and paths validated; the step-3 split, the K2 rows,
-   the unique K2 kmers and the peak device memory printed.
+6. steps 1-4 at E. coli scale with K=260 on the card, three times:
+   W2RAP_SORT=lax, radix, then pallas.  The checkpoints of the three runs
+   must be identical, every K4 kernel launched in step 2 and in step 3 of
+   the radix run with no exact recount, every K3 kernel in step 2 and in
+   step 3 of the pallas run, HBV and paths validated; the step-3 and
+   step-4 split, the K2 rows, the unique K2 kmers and the peak device
+   memory printed.
 
-Then one JSON line of the kernels, and last the device JSON line.
+Then the total seconds, one JSON line of the kernels, and last the
+device JSON line.
 Tolerance everywhere: exact equality (integer and bit-pattern data).
 Bounds: the larger of the bytes a kernel must move (each input read once,
 each output written once) over 3.35 TB/s and its integer operations (one
@@ -65,6 +80,7 @@ from w2rap_contigger_tpu_torch import device as tdev  # noqa: E402
 from w2rap_contigger_tpu_torch.graph import validate  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import _build  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import bitkmer as bk  # noqa: E402
+from w2rap_contigger_tpu_torch.ops import bitonic  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import collapse as kcol  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import kmer_engine as tke  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import kmerize as kkm  # noqa: E402
@@ -90,8 +106,16 @@ K4_REPLACES = {
     "radix_region_sort": "w2rap_contigger_tpu/ops/pallas_radix.py:108",
     "radix_merge_pass": "w2rap_contigger_tpu/ops/pallas_radix.py:162",
 }
+K3 = ("bitonic_tile_sort", "bitonic_cross_stage", "bitonic_merge")
+K3_REPLACES = {
+    "bitonic_tile_sort": "w2rap_contigger_tpu/ops/pallas_sort.py:140",
+    "bitonic_cross_stage": "w2rap_contigger_tpu/ops/pallas_sort.py:183",
+    "bitonic_merge": "w2rap_contigger_tpu/ops/pallas_sort.py:163",
+}
+STEP2_POW2 = 1 << 28  # the power of two above step 2's E. coli kmer rows
 SMALL_K = ("pe.small_K.hbv.npz", "pe.small_K.paths.npz")
 LARGE_K = ("pe.large_K.hbv.npz", "pe.large_K.paths.npz")
+CLEAN = ("pe.large_K.clean.hbv.npz", "pe.large_K.clean.paths.npz")
 
 
 def fail(msg: str):
@@ -115,6 +139,19 @@ def time_ms(fn, reps: int = 3) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def once_ms(fn):
+    """(fn(), its device time in ms): one call, no warm-up (for plain
+    versions, whose first call costs what every call does)."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def bound_ms(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
@@ -448,6 +485,153 @@ def check_radix_flags():
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: K3a, the cross stage and K3b against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _cross_pass_bytes(planes: torch.Tensor, num_keys: int, s: int, size: int) -> int:
+    """Bytes one cross pass must move on these planes, in place: for
+    every pair both rows' key words up to the first that differs, and for
+    a pair that swaps both whole rows read and written."""
+    num_ops, n = planes.shape
+    g = n // (2 * s)
+    v = planes[:num_keys].view(num_keys, g, 2, s)
+    first = torch.full((g, s), num_keys - 1, dtype=torch.int32, device=planes.device)
+    gt = torch.zeros((g, s), dtype=torch.bool, device=planes.device)
+    for j in range(num_keys - 1, -1, -1):
+        x, y = bk.from_raw32(v[j, :, 0]), bk.from_raw32(v[j, :, 1])
+        d = x != y
+        first = torch.where(d, j, first)
+        gt = torch.where(d, x > y, gt)
+        del x, y, d
+    desc = ((torch.arange(g, device=planes.device) * (2 * s)) & size) != 0
+    swap = gt ^ desc[:, None]
+    words = torch.where(swap, 4 * num_ops, 2 * (first.to(torch.int64) + 1)).sum()
+    return int(words) * 4
+
+
+def _bitonic_replay(planes: torch.Tensor, num_keys: int, T: int, count_bytes: bool = False):
+    """One in-place sort of a copy of planes, as bitonic_sort runs it, with
+    CUDA events around every launch.  Returns ({kernel: (mean ms a launch,
+    launches)}, the mean bytes a cross pass must move, or None): count
+    them with count_bytes=True, which reads the planes before every cross
+    pass, so its times are not the kernels'."""
+    buf = planes.clone()
+    marks = []
+    cross_bytes = []
+    for kind, x, size in bitonic.phases(planes.shape[1], T):
+        if count_bytes and kind == "cross":
+            cross_bytes.append(_cross_pass_bytes(buf, num_keys, x, size))
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        if kind == "tile":
+            bitonic.tile_sort(buf, num_keys, T)
+        elif kind == "cross":
+            bitonic.cross_stage(buf, num_keys, x, size)
+        else:
+            bitonic.merge_level(buf, num_keys, T, size)
+        t1.record()
+        marks.append((kind, t0, t1))
+    torch.cuda.synchronize()
+    del buf
+    names = {"tile": "bitonic_tile_sort", "cross": "bitonic_cross_stage",
+             "merge": "bitonic_merge"}
+    out = {n: [0.0, 0] for n in K3}
+    for kind, t0, t1 in marks:
+        out[names[kind]][0] += t0.elapsed_time(t1)
+        out[names[kind]][1] += 1
+    mean_bytes = sum(cross_bytes) / len(cross_bytes) if count_bytes else None
+    return {n: (ms / max(c, 1), c) for n, (ms, c) in out.items()}, mean_bytes
+
+
+def check_bitonic(label: str, planes: torch.Tensor, num_keys: int) -> dict:
+    """Every K3 kernel against its plain version on the same inputs (its
+    inputs from the kernel before it, at the first merge level; each
+    kernel sorts a copy in place), the whole sort against the plain sort,
+    times, bounds and the in-place sort's peak memory."""
+    num_ops, n = planes.shape
+    T = bitonic.tile_rows_of(num_ops, n)
+    if n < 2 * T:
+        fail(f"K3 {label}: n={n} is one tile, no merge level")
+    plane_bytes = planes.numel() * 4
+    lt = int(math.log2(T))
+    res = {}
+
+    tiled = bitonic.tile_sort(planes.clone(), num_keys, T)
+    want, plain_ms = once_ms(lambda: bitonic.tile_sort_plain(planes, num_keys, T))
+    err = max_abs_err([tiled], [want])
+    del want
+    b, by = bound_ms(2 * plane_bytes, n / 2 * lt * (lt + 1) / 2)
+    res["bitonic_tile_sort"] = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=b,
+                                    bound_by=by)
+
+    crossed = bitonic.cross_stage(tiled.clone(), num_keys, T, 2 * T)
+    want, plain_ms = once_ms(lambda: bitonic.cross_stage_plain(tiled, num_keys, T, 2 * T))
+    err = max_abs_err([crossed], [want])
+    del want, tiled
+    # the mean over the sort's passes of what a pass must move
+    cross_bytes = _bitonic_replay(planes, num_keys, T, count_bytes=True)[1]
+    b, by = bound_ms(cross_bytes, n / 2)
+    res["bitonic_cross_stage"] = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=b,
+                                      bound_by=by, pass_bytes=int(cross_bytes))
+
+    merged = bitonic.merge_level(crossed.clone(), num_keys, T, 2 * T)
+    want, plain_ms = once_ms(lambda: bitonic.merge_level_plain(crossed, num_keys, T, 2 * T))
+    err = max_abs_err([merged], [want])
+    del want
+    b, by = bound_ms(2 * plane_bytes, n / 2 * lt)
+    res["bitonic_merge"] = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+    del crossed, merged
+    torch.cuda.empty_cache()
+
+    # each kernel's time and launches as one sort runs them
+    _bitonic_replay(planes, num_keys, T)  # warm-up
+    for name, (ms, launches) in _bitonic_replay(planes, num_keys, T)[0].items():
+        res[name].update(ms=ms, launches_per_sort=launches)
+
+    # the whole sort, in place on a copy, against the plain sort
+    work = planes.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bitonic.bitonic_sort(work, num_keys)
+    torch.cuda.synchronize()
+    sort_peak = torch.cuda.max_memory_allocated() - base
+    want, plain_whole_ms = once_ms(lambda: bitonic.bitonic_sort_plain(planes, num_keys))
+    whole_err = max_abs_err([work], [want])
+    del want
+    torch.cuda.empty_cache()
+    whole = []
+    for _ in range(2):
+        work.copy_(planes)
+        whole.append(once_ms(lambda: bitonic.bitonic_sort(work, num_keys))[1])
+    whole_ms = sum(whole) / len(whole)
+    del work
+    key = bk.pair_key(bk.from_raw32(planes[0]), bk.from_raw32(planes[1]))
+    library_ms = time_ms(lambda: torch.sort(key, stable=True), reps=1)
+    del key
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        r["library_ms"] = library_ms
+        say("bitonic", case=label, kernel=name, rows=n, ops=num_ops, W=num_keys, tile=T,
+            **fmt(r))
+        if r["max_abs_err"]:
+            fail(f"K3 {name} {label} differs from its plain version "
+                 f"(max_abs_err {r['max_abs_err']})")
+    ln = int(math.log2(n))
+    b, by = bound_ms(2 * plane_bytes, n / 2 * ln * (ln + 1) / 2)
+    say("bitonic_sort", case=label, rows=n, W=num_keys, ops=num_ops, tile=T,
+        max_abs_err=whole_err, ms=f"{whole_ms:.4f}", plain_ms=f"{plain_whole_ms:.4f}",
+        bound_ms=f"{b:.4f}", bound_by=by, library_ms=f"{library_ms:.4f}",
+        sort_peak_bytes=sort_peak, planes_bytes=plane_bytes)
+    if whole_err:
+        fail(f"K3 bitonic_sort {label} differs from its plain version ({whole_err})")
+    return {name: {k: v for k, v in r.items() if k not in ("launches_per_sort", "pass_bytes")}
+            for name, r in res.items()}
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: the port's steps through its CLI entry
 # ---------------------------------------------------------------------------
 
@@ -504,17 +688,47 @@ def phase_parity(work: str) -> str:
     return data
 
 
-def phase_parity_step3(data: str):
+def _perf_seconds(out_dir: str, name: str) -> str:
+    """The seconds of one `.perf` line (`TIME, <name>, <s>, <s>`)."""
+    with open(f"{out_dir}/pe.perf") as f:
+        for line in f:
+            fields = [x.strip() for x in line.split(",")]
+            if fields[1] == name:
+                return fields[2]
+    fail(f"{out_dir}/pe.perf has no {name} line")
+
+
+def phase_parity_step4(data: str):
+    """Steps 1-4 at K=200 under W2RAP_SORT=pallas, cuda against cpu, with
+    --min_freq 2: the sequencing errors it keeps give Clean200x branches
+    to delete, and the edge count must fall."""
+    os.environ["W2RAP_SORT"] = "pallas"
     times = {}
-    for dev in (DEV, "cpu"):
-        t0 = time.time()
-        run_cli(data, f"{data}/{dev}3", dev, ["-K", "200", "--dump_all"], to_step=3)
-        times[dev] = time.time() - t0
-    diffs = same_outputs(f"{data}/{DEV}3", f"{data}/cpu3", SMALL_K + LARGE_K)
+    try:
+        for dev in (DEV, "cpu"):
+            tdev.reset_launches()
+            t0 = time.time()
+            run_cli(data, f"{data}/{dev}4", dev,
+                    ["-K", "200", "--min_freq", "2", "--dump_all", "--dump_perf"], to_step=4)
+            times[dev] = time.time() - t0
+            if dev == DEV:
+                launches = {n: tdev.LAUNCHES[n] for n in K3}
+                if min(launches.values()) <= 0:
+                    fail(f"200 kb pallas run: a K3 kernel was not launched {launches}")
+    finally:
+        os.environ.pop("W2RAP_SORT", None)
+    diffs = same_outputs(f"{data}/{DEV}4", f"{data}/cpu4", SMALL_K + LARGE_K + CLEAN)
     if diffs:
-        fail(f"200 kb steps 1-3: cuda and cpu outputs differ in {diffs}")
-    say("parity_200kb_step3", K=200, cuda_s=f"{times[DEV]:.2f}",
-        cpu_s=f"{times['cpu']:.2f}", identical=True)
+        fail(f"200 kb steps 1-4 (pallas): cuda and cpu outputs differ in {diffs}")
+    edges = [len(np.load(f"{data}/{DEV}4/{name}")["inv"]) for name in (LARGE_K[0], CLEAN[0])]
+    if edges[1] >= edges[0]:
+        fail(f"200 kb steps 1-4: Clean200x deleted no edge ({edges[0]} -> {edges[1]})")
+    say("parity_200kb_step4", K=200, sort="pallas", min_freq=2,
+        cuda_s=f"{times[DEV]:.2f}", cpu_s=f"{times['cpu']:.2f}",
+        edges_large_K=edges[0], edges_clean=edges[1],
+        clean200x_cuda_s=_perf_seconds(f"{data}/{DEV}4", "Clean200x"),
+        clean200x_cpu_s=_perf_seconds(f"{data}/cpu4", "Clean200x"),
+        k3_launches=json.dumps(launches), identical=True)
 
 
 def _split() -> dict:
@@ -553,9 +767,9 @@ def phase_scale(data: str) -> dict:
     return launches
 
 
-def phase_step3(data: str) -> tuple[dict, int]:
-    """Steps 1-3 at K=260 under lax, then radix; returns the radix run's
-    launches and the step-3 stream's row count."""
+def phase_step4(data: str) -> tuple[dict, int]:
+    """Steps 1-4 at K=260 under lax, radix, then pallas; returns each
+    run's launches and the step-3 stream's row count."""
     os.environ["W2RAP_TIMELOG"] = "1"
     rows = {}
     step3 = {}
@@ -576,7 +790,7 @@ def phase_step3(data: str) -> tuple[dict, int]:
     step3_repath.repath = repath
     runs = {}
     try:
-        for sort in ("lax", "radix"):
+        for sort in ("lax", "radix", "pallas"):
             os.environ["W2RAP_SORT"] = sort
             sysinfo.timelog_reset()
             torch.cuda.reset_peak_memory_stats()
@@ -585,7 +799,7 @@ def phase_step3(data: str) -> tuple[dict, int]:
             recounts = tke.RADIX_RECOUNTS
             t0 = time.time()
             hbv, paths, d = run_cli(data, f"{data}/k260_{sort}", DEV,
-                                    ["-K", "260", "--dump_all", "--dump_perf"], to_step=3)
+                                    ["-K", "260", "--dump_all", "--dump_perf"], to_step=4)
             torch.cuda.synchronize()
             wall = time.time() - t0
             launches = runs[sort] = dict(tdev.LAUNCHES)
@@ -599,23 +813,26 @@ def phase_step3(data: str) -> tuple[dict, int]:
                 max_memory_allocated=torch.cuda.max_memory_allocated(),
                 launches=json.dumps(launches), step3_launches=json.dumps(step3))
             say("ecoli_k260_split", sort=sort, **{
-                k: v for k, v in _split().items() if k.startswith(("step2.count", "step3"))})
+                k: v for k, v in _split().items()
+                if k.startswith(("step2.count", "step3", "step4"))})
             say("ecoli_k260_perf", sort=sort, perf=repr(perf))
-            if sort == "radix":
-                if tke.RADIX_RECOUNTS != recounts:
-                    fail("the radix run fell back to the exact lax recount")
-                for name in K4:
-                    if step3[name] <= 0 or launches[name] - step3[name] <= 0:
-                        fail(f"kernel {name} was not launched in step 2 and step 3")
+            sort_kernels = {"radix": K4, "pallas": K3}.get(sort, ())
+            if sort == "radix" and tke.RADIX_RECOUNTS != recounts:
+                fail("the radix run fell back to the exact lax recount")
+            for name in sort_kernels:
+                if step3[name] <= 0 or launches[name] - step3[name] <= 0:
+                    fail(f"kernel {name} was not launched in step 2 and step 3")
     finally:
         tke.count_kmers_flat = orig_count
         step3_repath.repath = orig_repath
         os.environ.pop("W2RAP_SORT", None)
-    diffs = same_outputs(f"{data}/k260_lax", f"{data}/k260_radix", SMALL_K + LARGE_K)
-    if diffs:
-        fail(f"E. coli K=260: lax and radix checkpoints differ in {diffs}")
-    say("ecoli_k260_identical", lax_vs_radix=True)
-    return runs["radix"], rows["k2"]
+    for sort in ("radix", "pallas"):
+        diffs = same_outputs(f"{data}/k260_lax", f"{data}/k260_{sort}",
+                             SMALL_K + LARGE_K + CLEAN)
+        if diffs:
+            fail(f"E. coli K=260: lax and {sort} checkpoints differ in {diffs}")
+    say("ecoli_k260_identical", lax_vs_radix=True, lax_vs_pallas=True)
+    return runs, rows["k2"]
 
 
 def main():
@@ -645,6 +862,14 @@ def main():
     check_radix_flags()
     say("phase3b_a", seconds=f"{time.time() - t0:.1f}")
 
+    # 3c (a): step 2's shape under pallas, 4 key words + payload
+    t0 = time.time()
+    planes = kmer_stream(4, STEP2_POW2, SEED + 3, True, 45)
+    k3 = check_bitonic("step2_W4", planes, 4)
+    del planes
+    torch.cuda.empty_cache()
+    say("phase3c_a", seconds=f"{time.time() - t0:.1f}")
+
     with tempfile.TemporaryDirectory(prefix="w2rap_smoke_") as tmp:
         work = args.work or tmp
         os.makedirs(work, exist_ok=True)
@@ -652,7 +877,7 @@ def main():
         s200 = phase_parity(work)
         say("phase4", seconds=f"{time.time() - t0:.1f}")
         t0 = time.time()
-        phase_parity_step3(s200)
+        phase_parity_step4(s200)
         say("phase4b", seconds=f"{time.time() - t0:.1f}")
         t0 = time.time()
         data = f"{work}/ecoli"
@@ -660,7 +885,7 @@ def main():
         launches = phase_scale(data)
         say("phase5", seconds=f"{time.time() - t0:.1f}")
         t0 = time.time()
-        radix_launches, k2_rows = phase_step3(data)
+        runs, k2_rows = phase_step4(data)
         say("phase6", seconds=f"{time.time() - t0:.1f}")
 
     # 3b (b): step 3's shape at K=260, 17 key words with ctx in the pad bits
@@ -670,6 +895,15 @@ def main():
     del planes
     torch.cuda.empty_cache()
     say("phase3b_b", seconds=f"{time.time() - t0:.1f}")
+
+    # 3c (b): step 3's shape under pallas, 17 key words + payload, the
+    # power of two the stream of phase 6's K2 rows pads to
+    t0 = time.time()
+    planes = kmer_stream(17, max(1 << k2_rows.bit_length(), 128), SEED + 18, True, 2)
+    check_bitonic("step3_W17", planes, 17)
+    del planes
+    torch.cuda.empty_cache()
+    say("phase3c_b", seconds=f"{time.time() - t0:.1f}")
 
     kernels = [
         {"name": "kmerize", "route": "cuda",
@@ -683,8 +917,13 @@ def main():
     ] + [
         {"name": name, "route": "cuda",
          "source": "w2rap_contigger_tpu_torch/csrc/radix.cu",
-         "replaces": K4_REPLACES[name], "launches": radix_launches[name], **k4[name]}
+         "replaces": K4_REPLACES[name], "launches": runs["radix"][name], **k4[name]}
         for name in K4
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "w2rap_contigger_tpu_torch/csrc/bitonic.cu",
+         "replaces": K3_REPLACES[name], "launches": runs["pallas"][name], **k3[name]}
+        for name in K3
     ]
     say("total", seconds=f"{time.time() - t_start:.1f}")
     print(card, flush=True)

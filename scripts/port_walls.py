@@ -1,7 +1,7 @@
 """Spread of the port's step walls and spans over repeated runs on one GPU.
 
     python3 scripts/port_walls.py --data DIR [--runs 3] [--to_step 3]
-        [-K 260] [--sort lax radix] [--parent CHECKOUT]
+        [-K 260] [--sort lax radix pallas] [--parent CHECKOUT]
 
 DIR holds reads_R1.fastq and reads_R2.fastq (scripts/make_synth_fastq.py).
 Every run is one process, `python -m w2rap_contigger_tpu_torch -r ... -o
@@ -12,7 +12,7 @@ does (the kernels' build is cached on disk after the first).  With
 order parent, this, this, parent, ... so both see the same card.
 
 Printed per run: the `.perf` walls (ReadLoad, SmallKGraph, RepathInMemory,
-host clock, seconds) and the sort spans; then, per checkout and back end,
+Clean200x, host clock, seconds), the sort spans and the step-4 span; then, per checkout and back end,
 the min and max of each over the runs.
 """
 
@@ -25,7 +25,8 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SPANS = ("step2.count", "step2.count.sort", "step3.count", "step3.count.sort")
+SPANS = ("step2.count", "step2.count.sort", "step3.count", "step3.count.sort",
+         "step4.clean200x")
 
 
 def one_run(checkout: str, data: str, out: str, args, sort: str) -> dict:

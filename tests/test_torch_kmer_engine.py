@@ -1,5 +1,5 @@
-"""Device counting (K1 -> torch sort -> K2 -> compaction) of the port on
-the CPU against the JAX package's count_kmers_device with its Pallas
+"""Device counting (K1 -> sort -> K2 -> compaction) of the port on
+the CPU, under each sort back end, against the JAX package's count_kmers_device with its Pallas
 kernels in interpret mode: dictionary words, counts, contexts and the
 101-bin histogram.  Tolerance: exact equality."""
 
@@ -139,12 +139,44 @@ def test_radix_recounts_exactly_on_overflow(rng, monkeypatch):
     assert tke.RADIX_RECOUNTS == recounts + 1
     assert torch.equal(d.words, want.words) and torch.equal(d.cnt, want.cnt)
     assert np.array_equal(hist, whist)
+    # the bitonic sort is exact on all words: the same counts, no recount
     monkeypatch.setenv("W2RAP_SORT", "pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tke.count_kmers_device(bases, lengths, quals, 60, device="cpu")
+    d, hist = tke.count_kmers_device(bases, lengths, quals, 60, device="cpu")
+    assert tke.RADIX_RECOUNTS == recounts + 1
+    assert torch.equal(d.words, want.words) and torch.equal(d.cnt, want.cnt)
+    assert torch.equal(d.ctx, want.ctx) and np.array_equal(hist, whist)
 
 
-@pytest.mark.parametrize("k,sort", [(200, "lax"), (260, "lax"), (260, "radix")])
+@pytest.mark.parametrize("k", [21, 31, 60])
+def test_pallas_backend_matches_jax(rng, monkeypatch, k):
+    """W2RAP_SORT=pallas (K3 through its plain version: W word planes +
+    the payload plane, padded to a power of two) against the JAX
+    package's count_kmers_device: dictionary and histogram.  k=21 and 31
+    have one or two pad bits' worth of words (W=2), k=60 W=4."""
+    L = k + 31  # 32 windows a read, 8192 rows: 16384 after padding
+    genome = rng.integers(0, 4, size=1500).astype(np.uint8)
+    starts = rng.integers(0, len(genome) - L, size=256)
+    bases = np.stack([genome[s : s + L] for s in starts])
+    err = rng.random(bases.shape) < 0.004
+    bases[err] = (bases[err] + 1) % 4
+    lengths = rng.integers(k - 3, L + 1, size=len(starts)).astype(np.int32)
+    quals = np.full(bases.shape, 35, np.uint8)
+    quals[rng.random(bases.shape) < 0.005] = 2
+    jd, jhist = ke.count_kmers_device(bases, lengths, quals, k, min_freq=2,
+                                      chunk_reads=128, interpret=True)
+    monkeypatch.setenv("W2RAP_SORT", "pallas")
+    d, hist = tke.count_kmers_device(bases, lengths, quals, k, min_freq=2,
+                                     chunk_reads=96, device="cpu")
+    words, counts, ctx = state.dict_to_numpy(d)
+    assert d.size == jd.size > 0 and hist[1] > 0
+    np.testing.assert_array_equal(words, jd.words)
+    np.testing.assert_array_equal(counts, jd.counts)
+    np.testing.assert_array_equal(ctx, jd.ctx)
+    np.testing.assert_array_equal(hist, jhist)
+
+
+@pytest.mark.parametrize("k,sort", [(200, "lax"), (260, "lax"), (260, "radix"),
+                                    (260, "pallas")])
 def test_count_kmers_flat_matches_jax(rng, monkeypatch, k, sort):
     """Step 3's flat counting against the JAX package's count_kmers_flat:
     segments of a genome (shared kmers across segments) and random ones,

@@ -1,8 +1,9 @@
 """The step-2 slice end to end: the port's CLI (--to_step 2 --device cpu)
 against the JAX package's run_pipeline(to_step=2) on one synthetic
 FASTQ pair — small_K.freqs byte-identical, every array of the HBV and
-paths checkpoints equal.  Also: the port imports no jax, and refuses
-what it does not run instead of carrying on."""
+paths checkpoints equal.  Also: the port imports no jax, runs every
+sort back end, and refuses what it does not run instead of carrying
+on."""
 
 import os
 import subprocess
@@ -53,9 +54,13 @@ def test_step2_cli_matches_jax_pipeline(fastq, tmp_path):
 def test_cli_refuses_what_is_not_ported(fastq, tmp_path, monkeypatch):
     out = str(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["-r", fastq, "-o", out, "--to_step", "4", "--device", "cpu"])
+        cli.main(["-r", fastq, "-o", out, "--to_step", "5", "--device", "cpu"])
+    # the bitonic sort (K3) is ported: W2RAP_SORT=pallas runs
     monkeypatch.setenv("W2RAP_SORT", "pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    hbv, paths, d = cli.main(["-r", fastq, "-o", out, "--to_step", "2", "--device", "cpu"])
+    assert hbv.n_edges > 0 and d.size > 0 and os.path.exists(f"{out}/small_K.freqs")
+    monkeypatch.setenv("W2RAP_SORT", "bogus")
+    with pytest.raises(ValueError, match="lax, radix or pallas"):
         cli.main(["-r", fastq, "-o", out, "--to_step", "2", "--device", "cpu"])
     monkeypatch.delenv("W2RAP_SORT")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

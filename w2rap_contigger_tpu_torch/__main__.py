@@ -3,13 +3,13 @@ plus --device.
 
 Usage:
   python -m w2rap_contigger_tpu_torch -r r1.fastq,r2.fastq -o out_dir \\
-      --to_step 3 [-K 200|260|...] [--device cuda|cpu] [-p prefix] ...
+      --to_step 4 [-K 200|260|...] [-s min_size] [--device cuda|cpu] ...
 
-Steps 1-3 are ported; --to_step above 3 raises NotImplementedError.
+Steps 1-4 are ported; --to_step above 4 raises NotImplementedError.
 --device cuda (the default) needs a card and never falls back to the
 CPU; --device cpu runs the plain PyTorch versions of the kernels and
-exists for the tests.  W2RAP_SORT=lax|radix picks the counting sort of
-steps 2 and 3, as in the JAX package.
+exists for the tests.  W2RAP_SORT=lax|radix|pallas picks the counting
+sort of steps 2 and 3, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -101,6 +101,7 @@ def main(argv=None):
         to_step=args.to_step,
         min_freq=args.min_freq,
         min_qual=args.min_qual,
+        min_size=args.min_size,
         dump_all=args.dump_all,
         dump_perf=args.dump_perf,
         threads=args.threads,

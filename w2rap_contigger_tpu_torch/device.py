@@ -18,7 +18,8 @@ from .utils import sysinfo
 # where it launches its kernel and nowhere else
 LAUNCHES: dict[str, int] = {
     "kmerize": 0, "collapse": 0, "radix_tile_sort": 0, "radix_partition": 0,
-    "radix_region_sort": 0, "radix_merge_pass": 0,
+    "radix_region_sort": 0, "radix_merge_pass": 0, "bitonic_tile_sort": 0,
+    "bitonic_cross_stage": 0, "bitonic_merge": 0,
 }
 
 

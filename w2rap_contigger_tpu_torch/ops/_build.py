@@ -1,10 +1,13 @@
 """Build and load the hand-written Hopper kernels.
 
-Every `csrc/*.cu` is compiled by nvcc into one shared library with a
-plain C interface, loaded with ctypes:
+Every `csrc/*.cu` is compiled by its own nvcc, all started together,
+and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o <build>/<hash>/libw2rap_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <build>/<hash>/<name>.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o <build>/<hash>/libw2rap_kernels.so <build>/<hash>/*.o
 
 The build directory (`w2rap_contigger_tpu_torch/csrc/build/`, listed in
 .gitignore) is keyed by a hash of the sources and flags, so a library is
@@ -25,14 +28,12 @@ import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
 _LIB = None
-BUILD_SECONDS: float | None = None  # wall time of the nvcc run, if any
+BUILD_SECONDS: float | None = None  # wall time of the nvcc runs, if any
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -48,6 +49,9 @@ _SIGNATURES = {
                                 _I32, _P, _I64, _I32, _I32, _P, _P],
     "w2rap_radix_merge_pass": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                                _I32, _P, _I64, _I32, _I32, _P, _P],
+    "w2rap_bitonic_tile_sort": [_P, _I64, _I32, _I32, _I32, _P],
+    "w2rap_bitonic_merge": [_P, _I64, _I32, _I32, _I32, _I64, _P],
+    "w2rap_bitonic_cross_stage": [_P, _I64, _I32, _I32, _I64, _I64, _P],
 }
 
 
@@ -77,6 +81,32 @@ def _digest(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" + out)
+
+
+def _build(srcs: list[str], out_dir: str, so_path: str) -> None:
+    """One nvcc per source, all at once, then one link."""
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(out_dir, os.path.basename(s)[:-3] + f".{tag}.o") for s in srcs]
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(srcs, objs)])
+        tmp = f"{so_path}.{tag}"
+        _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, so_path)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+
+
 def library():
     """The loaded kernel library, built on first use."""
     global _LIB, BUILD_SECONDS
@@ -88,15 +118,8 @@ def library():
         so_path = os.path.join(out_dir, "libw2rap_kernels.so")
         if not os.path.exists(so_path):
             os.makedirs(out_dir, exist_ok=True)
-            tmp = f"{so_path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
             t0 = time.time()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    "nvcc failed:\n" + " ".join(cmd) + "\n" + res.stdout + res.stderr
-                )
-            os.replace(tmp, so_path)
+            _build(srcs, out_dir, so_path)
             BUILD_SECONDS = time.time() - t0
         lib = ctypes.CDLL(so_path)
         for name, argtypes in _SIGNATURES.items():

@@ -15,7 +15,10 @@ The chain, per the reference's createDictOMPRecursive
         --sort, W2RAP_SORT=lax (default): stable torch.sort passes over
           int64 keys, least significant first (lax.sort in JAX);
           W2RAP_SORT=radix: the partition sort K4a-d, with an exact lax
-          recount on slot overflow or comparator collision-->
+          recount on slot overflow or comparator collision;
+          W2RAP_SORT=pallas: the bitonic network K3a/b on W word planes
+          + the payload plane, padded with sentinels to a power of two
+          (:1139-1141, :1174-1181), exact on all W words-->
         --K2 collapse--> per-tile compacted (kmer, ctx, cnt) rows
         --global compaction (torch gather, _compact_planes_dev :1293)-->
         sorted dictionary + 101-bin histogram (low bins from K2, :1399)
@@ -31,6 +34,7 @@ import torch
 
 from ..device import resolve_device, timed
 from . import bitkmer as bk
+from . import bitonic
 from . import context as kctx
 from . import radix
 from .collapse import TILE, collapse
@@ -125,23 +129,25 @@ RADIX_RECOUNTS = 0  # radix sorts that fell back to the exact lax recount
 
 
 def sort_backend() -> str:
-    """W2RAP_SORT: "lax" (default; the library sort, lax.sort in JAX) or
-    "radix" (the partition sort, K4a-d).  "pallas" (the bitonic sort,
-    K3a/b) is not ported yet and raises."""
+    """W2RAP_SORT: "lax" (default; the library sort, lax.sort in JAX),
+    "radix" (the partition sort, K4a-d) or "pallas" (the bitonic sort,
+    K3a/b)."""
     backend = os.environ.get("W2RAP_SORT", "lax")
-    if backend == "pallas":
-        raise NotImplementedError(
-            "W2RAP_SORT=pallas (the bitonic sort K3a/b, ops/pallas_sort.py) is "
-            "not ported yet; see ROADMAP.md"
-        )
-    if backend not in ("lax", "radix"):
+    if backend not in ("lax", "radix", "pallas"):
         raise ValueError(f"W2RAP_SORT={backend!r}: lax, radix or pallas")
     return backend
 
 
-def _use_radix(backend: str, n_rows: int) -> bool:
-    # the partition setup is not worth it on tiny inputs (:1136-1137)
-    return backend == "radix" and n_rows >= 4 * radix.DEFAULT_TILE_ROWS * radix.LANES
+def _sort_kind(backend: str, n_rows: int) -> str:
+    """The sort a stream of n_rows takes: radix falls back to lax on tiny
+    inputs, where the partition setup is not worth it (:1136-1137)."""
+    if backend == "radix" and n_rows < 4 * radix.DEFAULT_TILE_ROWS * radix.LANES:
+        return "lax"
+    return backend
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
 
 
 class Stream:
@@ -154,6 +160,12 @@ class Stream:
     never reach the dictionary, and the sort has fewer rows to move.  The
     JAX package keeps them as sentinel rows; the rows the sort sees are
     the port's own (its row order already differs).
+
+    The pallas back end needs a power of two of rows: the stream is
+    padded with sentinels (all-ones words, payload 0) to max(next_pow2(n
+    + 1), 128) rows (:1139-1141), and ctx never rides in the pad bits: the
+    W words are the sort's keys, the payload plane rides along
+    (:1174-1176).
 
     The radix back end needs whole tiles.  Its padding rows (sentinels:
     all-ones words, payload 0) are spread over the tiles, a few at the
@@ -173,7 +185,7 @@ class Stream:
     def __init__(self, capacity: int, W: int, k: int, backend: str, dev):
         self.W = W
         self.backend = backend
-        self.ctx_in_pad = 2 * (16 * W - k) >= 8 and not (
+        self.ctx_in_pad = 2 * (16 * W - k) >= 8 and backend != "pallas" and not (
             backend == "radix" and W <= radix.MAX_CMP_KEYS)
         self.buf = torch.empty((W if self.ctx_in_pad else W + 1, capacity),
                                dtype=torch.int32, device=dev)
@@ -193,19 +205,28 @@ class Stream:
         self.buf[:, self.n : self.n + m] = rows
         self.n += m
 
-    def planes(self) -> tuple[torch.Tensor, bool]:
-        """(planes, radix): the contiguous stream for the sort, and whether
-        the partition sort takes it (whole tiles, padding spread)."""
+    def planes(self) -> tuple[torch.Tensor, str]:
+        """(planes, kind): the contiguous stream for the sort, and the sort
+        that takes it (lax, radix: whole tiles, padding spread; or pallas:
+        a power of two of rows, padding at the end)."""
         buf, n = self.buf, self.n
         self.buf = None
-        if not _use_radix(self.backend, n):
-            return buf[:, :n], False
+        kind = _sort_kind(self.backend, n)
+        if kind == "lax":
+            return buf[:, :n], kind
+        if kind == "pallas":
+            n_pad = max(_next_pow2(n + 1), bitonic.LANES)
+            planes = torch.empty((buf.shape[0], n_pad), dtype=torch.int32, device=buf.device)
+            planes[:, :n] = buf[:, :n]
+            planes[: self.W, n:] = -1
+            planes[self.W :, n:] = 0
+            return planes, kind
         T = radix.DEFAULT_TILE_ROWS * radix.LANES
         n_pad = -(-n // T) * T
         planes = torch.empty((buf.shape[0], n_pad), dtype=torch.int32, device=buf.device)
         if n_pad == n:
             planes.copy_(buf[:, :n])
-            return planes, True
+            return planes, kind
         planes[: self.W] = -1
         planes[self.W :] = 0
         n_tiles = n_pad // T
@@ -215,7 +236,7 @@ class Stream:
         i = torch.arange(n, device=buf.device)
         t = torch.where(i < b0, i // (T - q - 1), rem + (i - b0) // (T - q))
         planes[:, i + t * q + torch.clamp(t, max=rem)] = buf[:, :n]
-        return planes, True
+        return planes, kind
 
 
 def _strip_ctx(sp: torch.Tensor) -> torch.Tensor:
@@ -272,13 +293,16 @@ def count_epilogue(stream: Stream, k: int, min_freq: int, span: str):
     hist).  Shared by steps 2 and 3 (kmer_engine.py:1119-1207)."""
     W, ctx_in_pad = stream.W, stream.ctx_in_pad
     dev = stream.buf.device
+    if stream.n == 0:
+        return empty_dict(k, dev), np.zeros(101, dtype=np.int64)
     with timed(f"{span}.sort", dev):
-        planes, use_radix = stream.planes()
-        if planes.shape[1] == 0:
-            return empty_dict(k, dev), np.zeros(101, dtype=np.int64)
-        sp = _radix_sorted(planes, W, ctx_in_pad) if use_radix else None
-        if sp is None:
-            sp = _lax_sorted(planes, W, ctx_in_pad)
+        planes, kind = stream.planes()
+        if kind == "pallas":  # the stream's own copy: sorted in place
+            sp = bitonic.bitonic_sort(planes, num_keys=W)
+        else:
+            sp = _radix_sorted(planes, W, ctx_in_pad) if kind == "radix" else None
+            if sp is None:
+                sp = _lax_sorted(planes, W, ctx_in_pad)
         del planes
     with timed(f"{span}.collapse", dev):
         return dict_from_collapsed(collapse(sp, min_count=min_freq), W, k, min_freq)

@@ -1,12 +1,13 @@
-"""Pipeline driver of the port: steps 1-3 with the JAX package's
+"""Pipeline driver of the port: steps 1-4 with the JAX package's
 checkpoints.
 
-Counterpart of w2rap_contigger_tpu/pipeline/driver.py:52-157.  Step 1
+Counterpart of w2rap_contigger_tpu/pipeline/driver.py:52-173.  Step 1
 is host `extract_reads`; steps 2 and 3 run on `device` through this
-package.  Later steps are not ported yet and raise.  Outputs have the JAX
-package's names and formats: frag_reads_orig.npz, small_K.freqs,
-<p>.small_K.hbv.npz / .paths.npz (step 2), <p>.large_K.hbv.npz /
-.paths.npz (step 3) and <p>.perf.
+package; step 4 (Clean200x) is host numpy, as in the JAX package.  Later
+steps are not ported yet and raise.  Outputs have the JAX package's names
+and formats: frag_reads_orig.npz, small_K.freqs, <p>.small_K.hbv.npz /
+.paths.npz (step 2), <p>.large_K.hbv.npz / .paths.npz (step 3),
+<p>.large_K.clean.hbv.npz / .paths.npz (step 4) and <p>.perf.
 """
 
 from __future__ import annotations
@@ -20,9 +21,9 @@ from ..device import resolve_device
 from ..graph.hbv import HyperBasevector
 from ..paths.read_paths import ReadPathVec
 from ..utils import sysinfo
-from . import step2_small_k, step3_repath
+from . import step2_small_k, step3_repath, step4_clean
 
-LAST_PORTED_STEP = 3
+LAST_PORTED_STEP = 4
 
 
 class PerfLog:
@@ -54,9 +55,10 @@ def run_pipeline(
     prefix: str = "pe",
     large_k: int = 200,
     from_step: int = 1,
-    to_step: int = 3,
+    to_step: int = 4,
     min_freq: int = 4,
     min_qual: int = 7,
+    min_size: int = 0,
     dump_all: bool = False,
     dump_perf: bool = False,
     chunk_reads: int = 65536,
@@ -68,8 +70,9 @@ def run_pipeline(
     fill_join: bool = False,
     device="cuda",
 ):
-    """Run steps from_step..to_step (1..3) on `device`; returns (hbv,
-    paths, dict) of the last step that ran (Nones after step 1 alone)."""
+    """Run steps from_step..to_step (1..4) on `device`; returns (hbv,
+    paths, dict): the graph and paths of the last step that ran, and the
+    last kmer dictionary counted (Nones where no step made them)."""
     if to_step > LAST_PORTED_STEP or from_step > LAST_PORTED_STEP:
         raise NotImplementedError(
             f"steps {LAST_PORTED_STEP + 1}-7 are not ported yet "
@@ -84,6 +87,14 @@ def run_pipeline(
     sysinfo.set_max_memory(int(max_mem_gb) << 30)
 
     hbv = paths = d = None
+
+    def get_reads():
+        # steps 2 and 4 read the reads; a later --from_step loads them
+        nonlocal reads
+        if reads is None:
+            reads = ReadSet.load(f"{out_dir}/frag_reads_orig.npz")
+        return reads
+
     if from_step <= 1 <= to_step:
         if reads is None:
             if not read_spec:
@@ -94,10 +105,8 @@ def run_pipeline(
         perf.checkpoint("ReadLoad")
 
     if from_step <= 2 <= to_step:
-        if reads is None:
-            reads = ReadSet.load(f"{out_dir}/frag_reads_orig.npz")
         hbv, paths, d = step2_small_k.build_read_q_graph(
-            reads,
+            get_reads(),
             min_qual=min_qual,
             min_freq=min_freq,
             workdir=out_dir,
@@ -125,6 +134,17 @@ def run_pipeline(
             hbv.save(f"{p}.large_K.hbv.npz")
             paths.save(f"{p}.large_K.paths.npz")
         perf.checkpoint("RepathInMemory")
+    elif from_step == 4:
+        hbv = HyperBasevector.load(f"{p}.large_K.hbv.npz")
+        paths = ReadPathVec.load(f"{p}.large_K.paths.npz")
+
+    if from_step <= 4 <= to_step:
+        with sysinfo.timelog("step4.clean200x"):
+            hbv, paths = step4_clean.clean200x(hbv, paths, get_reads(), min_size=min_size)
+        if dump_all or to_step == 4:
+            hbv.save(f"{p}.large_K.clean.hbv.npz")
+            paths.save(f"{p}.large_K.clean.paths.npz")
+        perf.checkpoint("Clean200x")
 
     if sysinfo.timelog_enabled():
         rep = sysinfo.timelog_report()
