@@ -16,20 +16,26 @@ exits non-zero and prints no result line:
 3b. K4a-d (the partition sort) against their plain versions, kernel by
    kernel and whole, bit-identical: (a) step 2's shape, 210.1M rows of
    4 key words + payload; (b) step 3's shape at K=260, 17 key words with
-   ctx in the pad bits, at the row count phase 6 counted; each kernel's
-   time, its plain version's, its bound, and one stable torch.sort of the
-   leading int64 key as the library yardstick; plus a skewed stream and
-   one with real rows all ones in the comparator words, which must both
-   raise the overflow flag;
-3c. K3a, the cross stage and K3b (the bitonic sort) against their plain
-   versions, phase by phase and whole, bit-identical: (a) step 2's shape,
-   2^28 rows of 4 key words + payload; (b) step 3's, the power of two
-   above phase 6's K2 rows, 17 key words + payload; each kernel's mean
-   time a launch in one in-place sort, its launches in that sort, its
-   plain version's time, its bound (a cross pass: the key words its pairs
-   compare and the rows it swaps, counted on the data), one stable
-   torch.sort of the leading int64 key as the library yardstick, and the
-   in-place sort's peak device memory;
+   ctx in the pad bits, at the row count phase 6 counted; K4c (the merge
+   of K4b's sorted slots, csrc/region_merge.cu) also with its final
+   gather; each kernel's time, its plain version's, its bound, and one
+   stable torch.sort of the leading int64 key as the library yardstick;
+   K4c's launch geometry, registers, spills and shared bytes; plus a
+   skewed stream and one with real rows all ones in the comparator
+   words, which must both raise the overflow flag;
+3c. K3a (the key-index tile sort, csrc/bitonic_tile.cu), the cross stage
+   and K3b (the bitonic sort) against their plain versions, phase by
+   phase and whole, bit-identical: K3a first alone at W = 2, 4, 13, 17,
+   40 on tiles of 128..8192 rows, on tie-heavy rows and on rows of which
+   90% share their first word; then (a) step 2's shape, 2^28 rows of 4
+   key words + payload; (b) step 3's, the power of two above phase 6's
+   K2 rows, 17 key words + payload; each kernel's mean time a launch in
+   one in-place sort, its launches in that sort, its plain version's
+   time, its bound (a cross pass: the key words its pairs compare and the
+   rows it swaps, counted on the data), one stable torch.sort of the
+   leading int64 key as the library yardstick, K3a's launch geometry,
+   registers, spills and shared bytes, and the in-place sort's peak
+   device memory;
 4. step 2 through the port's CLI entry on a 200 kb genome / 24k PE250
    pairs, --device cuda against --device cpu: small_K.freqs, HBV and
    paths must be identical;
@@ -112,6 +118,11 @@ K3_REPLACES = {
     "bitonic_cross_stage": "w2rap_contigger_tpu/ops/pallas_sort.py:183",
     "bitonic_merge": "w2rap_contigger_tpu/ops/pallas_sort.py:163",
 }
+CSRC = "w2rap_contigger_tpu_torch/csrc"
+K4_SOURCE = f"{CSRC}/radix.cu"
+K3_SOURCE = f"{CSRC}/bitonic.cu"
+KERNEL_SOURCES = {"radix_region_sort": f"{CSRC}/region_merge.cu",
+                  "bitonic_tile_sort": f"{CSRC}/bitonic_tile.cu"}
 STEP2_POW2 = 1 << 28  # the power of two above step 2's E. coli kmer rows
 SMALL_K = ("pe.small_K.hbv.npz", "pe.small_K.paths.npz")
 LARGE_K = ("pe.large_K.hbv.npz", "pe.large_K.paths.npz")
@@ -398,15 +409,25 @@ def check_radix(label: str, planes: torch.Tensor, num_keys: int, cmp_keys: int) 
     recs = part[:3]
     del s, args, part
 
-    # K4c
-    got = radix.region_sort(*recs, region, C)
-    err = max_abs_err(got, radix.region_sort_plain(*recs, region, C))
-    ms = time_ms(lambda: radix.region_sort(*recs, region, C))
+    # K4c: the chunks of K4b's sorted slots merged, as records and, as
+    # the last phase of a sort with no merge level runs it, gathered
+    run = min(cap, C)
+    got = radix.region_sort(*recs, region, C, run)
+    want = radix.region_sort_plain(*recs, region, C)
+    err = max_abs_err(got, want)
+    fin = radix.region_sort(*recs, region, C, run, final=(planes, num_keys))
+    err = max(err, max_abs_err([fin], [radix.gather_plain(want[2], planes, num_keys)]))
+    del want, fin
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: radix.region_sort(*recs, region, C, run))
     plain_ms = time_ms(lambda: radix.region_sort_plain(*recs, region, C), reps=1)
     lc = int(math.log2(C))
     b, by = bound_ms(total * 40, total / 2 * lc * (lc + 1) / 2)
     res["radix_region_sort"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                     bound_ms=b, bound_by=by)
+    geo = radix.region_merge_geometry(C, run)
+    say("radix_geometry", case=label, kernel="radix_region_sort", C=C, **geo,
+        **radix.region_sort_attrs())
     del recs
 
     # K4d: the first level against its plain version; the time is the
@@ -545,6 +566,44 @@ def _bitonic_replay(planes: torch.Tensor, num_keys: int, T: int, count_bytes: bo
     return {n: (ms / max(c, 1), c) for n, (ms, c) in out.items()}, mean_bytes
 
 
+def tie_stream(W: int, n: int, seed: int, tie_first: float) -> torch.Tensor:
+    """(W + 1, n) int32 planes on the card: key words from 8 values (half
+    >= 2^31, so unsigned order matters), a share tie_first of rows with
+    one first word, 10% sentinels; payload = row index."""
+    rng = np.random.default_rng(seed)
+    vals = np.array([0, 1, 5, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xFFFFFFFE,
+                     0xFFFFFFFF], dtype=np.uint32)
+    keys = vals[rng.integers(0, len(vals), size=(W, n))]
+    keys[0, rng.random(n) < tie_first] = 0x80000000
+    keys[:, rng.random(n) < 0.1] = 0xFFFFFFFF
+    planes = np.concatenate([keys, np.arange(n, dtype=np.uint32)[None]])
+    return torch.from_numpy(planes.view(np.int32)).to(DEV)
+
+
+def check_bitonic_tiles():
+    """K3a alone against its plain version at W = 2, 4, 13, 17, 40 on every
+    tile of 128..8192 rows whose planes and indices fit one block, four
+    tiles each, on tie-heavy rows and on rows 90% tied on their first
+    word."""
+    cases = 0
+    for W in (2, 4, 13, 17, 40):
+        T = 128
+        while T <= 8192:
+            try:
+                bitonic.tile_geometry(T, W + 1)
+            except ValueError:
+                break
+            for tie_first in (0.0, 0.9):
+                planes = tie_stream(W, 4 * T, SEED + W * T, tie_first)
+                got = bitonic.tile_sort(planes.clone(), W, T)
+                if not torch.equal(got, bitonic.tile_sort_plain(planes, W, T)):
+                    fail(f"K3a W={W} T={T} tie_first={tie_first} differs from its plain version")
+                cases += 1
+            T *= 2
+    say("bitonic_tiles", widths="2,4,13,17,40", tiles="128..8192", cases=cases,
+        identical=True)
+
+
 def check_bitonic(label: str, planes: torch.Tensor, num_keys: int) -> dict:
     """Every K3 kernel against its plain version on the same inputs (its
     inputs from the kernel before it, at the first merge level; each
@@ -565,6 +624,9 @@ def check_bitonic(label: str, planes: torch.Tensor, num_keys: int) -> dict:
     b, by = bound_ms(2 * plane_bytes, n / 2 * lt * (lt + 1) / 2)
     res["bitonic_tile_sort"] = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=b,
                                     bound_by=by)
+    geo = bitonic.tile_geometry(T, num_ops)
+    say("bitonic_geometry", case=label, kernel="bitonic_tile_sort", tile=T, **geo,
+        **bitonic.tile_sort_attrs(geo["R"]))
 
     crossed = bitonic.cross_stage(tiled.clone(), num_keys, T, 2 * T)
     want, plain_ms = once_ms(lambda: bitonic.cross_stage_plain(tiled, num_keys, T, 2 * T))
@@ -862,8 +924,10 @@ def main():
     check_radix_flags()
     say("phase3b_a", seconds=f"{time.time() - t0:.1f}")
 
-    # 3c (a): step 2's shape under pallas, 4 key words + payload
+    # 3c (a): K3a alone on small tiles, then step 2's shape under
+    # pallas, 4 key words + payload
     t0 = time.time()
+    check_bitonic_tiles()
     planes = kmer_stream(4, STEP2_POW2, SEED + 3, True, 45)
     k3 = check_bitonic("step2_W4", planes, 4)
     del planes
@@ -915,13 +979,11 @@ def main():
          "replaces": "w2rap_contigger_tpu/ops/pallas_collapse.py:83",
          "launches": launches["collapse"], **k2},
     ] + [
-        {"name": name, "route": "cuda",
-         "source": "w2rap_contigger_tpu_torch/csrc/radix.cu",
+        {"name": name, "route": "cuda", "source": KERNEL_SOURCES.get(name, K4_SOURCE),
          "replaces": K4_REPLACES[name], "launches": runs["radix"][name], **k4[name]}
         for name in K4
     ] + [
-        {"name": name, "route": "cuda",
-         "source": "w2rap_contigger_tpu_torch/csrc/bitonic.cu",
+        {"name": name, "route": "cuda", "source": KERNEL_SOURCES.get(name, K3_SOURCE),
          "replaces": K3_REPLACES[name], "launches": runs["pallas"][name], **k3[name]}
         for name in K3
     ]

@@ -1,8 +1,10 @@
 """K3 bitonic sort: the port's bitonic_sort (plain version, CPU) against
 the JAX package's Pallas kernels in interpret mode, bit for bit with the
 payload = row index, over tiles that differ between the two; each phase
-against a numpy transcription of the network; and, on a card, every
-kernel against its plain version.  Tolerance: exact equality."""
+against a numpy transcription of the network; a numpy model of K3a's
+key-index schedule (csrc/bitonic_tile.cu) against the plain tile sort;
+and, on a card, every kernel against its plain version.  Tolerance:
+exact equality."""
 
 import numpy as np
 import pytest
@@ -109,6 +111,103 @@ def test_phases_match_the_numpy_network(rng):
         np.testing.assert_array_equal(_np(x), want)
 
 
+def _key_index_model(planes, num_keys, T):
+    """K3a as bitonic_tile.cu computes it, in numpy, every thread of a
+    block at once: thread t holds positions t*R .. t*R + R-1 as (row
+    index, first key word); strides >= 32R exchange indices through
+    shared memory and re-read the first word from the tile, strides
+    R..16R exchange both between lanes of a warp, strides < R stay in the
+    thread; a tie on the first word reads the later words through the
+    indices, unless both rows carry the sentinel flag set at the load;
+    the planes are stored once through the final indices."""
+    num_ops, n = planes.shape
+    g = bitonic.tile_geometry(T, num_ops)
+    R, threads = g["R"], g["threads"]
+    assert threads * R == T and threads % 32 == 0
+    out = planes.copy()
+    t = np.arange(threads)
+    stages = {"smem": 0, "shfl": 0, "reg": 0}
+    for base in range(0, n, T):
+        tile = planes[:, base:base + T]  # read-only
+        ix = t[:, None] * R + np.arange(R)
+        key = tile[0][ix]
+        g0 = base + t * R
+
+        sent = (tile[:num_keys] == FULL).all(axis=0)
+
+        def swaps(ka, ia, kb, ib, desc):
+            gt = ka > kb
+            tied = (ka == kb) & ~(sent[ia] & sent[ib])
+            for j in range(1, num_keys):
+                x, y = tile[j][ia], tile[j][ib]
+                gt = np.where(tied & (x != y), x > y, gt)
+                tied &= x == y
+            return gt != desc
+
+        def exchange(pk, pi, m, size):
+            upper = ((t & m) != 0)[:, None]
+            desc = ((g0[:, None] + np.arange(R)) & size) != 0
+            assert (desc == desc[:, :1]).all()  # the kernel takes it once a stage
+            sw = np.where(upper, swaps(pk, pi, key, ix, desc), swaps(key, ix, pk, pi, desc))
+            return np.where(sw, pk, key), np.where(sw, pi, ix)
+
+        size = 2
+        while size <= T:
+            stride = size // 2
+            while stride >= 32 * R:
+                m = stride // R
+                pi = ix[t ^ m]  # the partner thread's indices
+                key, ix = exchange(tile[0][pi], pi, m, size)
+                stages["smem"] += 1
+                stride //= 2
+            while stride >= R:
+                m = stride // R
+                assert ((t ^ m) // 32 == t // 32).all()  # a lane of the same warp
+                key, ix = exchange(key[t ^ m], ix[t ^ m], m, size)
+                stages["shfl"] += 1
+                stride //= 2
+            s = R // 2
+            while s > 0:
+                if s <= stride:
+                    for r in range(R):
+                        if r & s:
+                            continue
+                        desc = ((g0 + r) & size) != 0
+                        sw = swaps(key[:, r], ix[:, r], key[:, r + s], ix[:, r + s], desc)
+                        for a in (key, ix):
+                            a[:, r], a[:, r + s] = (np.where(sw, a[:, r + s], a[:, r]),
+                                                    np.where(sw, a[:, r], a[:, r + s]))
+                    stages["reg"] += 1
+                s //= 2
+            size *= 2
+        assert np.array_equal(key, tile[0][ix])
+        assert np.array_equal(np.sort(ix.reshape(-1)), np.arange(T))
+        out[:, base:base + T] = tile[:, ix.reshape(-1)]
+    lt = T.bit_length() - 1
+    assert sum(stages.values()) == n // T * lt * (lt + 1) // 2
+    return out, {k: v // (n // T) for k, v in stages.items()}
+
+
+# (key words, tile T, tiles): R = 2 at T <= 2048, 4 at 4096, 8 at 8192,
+# 16 at 16384
+MODEL_CASES = [(1, 16384, 2), (2, 128, 4), (4, 8192, 2), (4, 4096, 2), (17, 2048, 2)]
+
+
+@pytest.mark.parametrize("num_keys,T,tiles", MODEL_CASES)
+def test_key_index_model_matches_plain(rng, num_keys, T, tiles):
+    """On tie-heavy rows (8 key values, 10% sentinels) and on rows of which
+    90% share their first word."""
+    for tie_first in (False, True):
+        planes = _planes(rng, T * tiles, num_keys)
+        if tie_first:
+            planes[0, rng.random(T * tiles) < 0.9] = 0x80000000
+        got, stages = _key_index_model(planes, num_keys, T)
+        np.testing.assert_array_equal(got, _np(bitonic.tile_sort_plain(_torch(planes), num_keys, T)))
+    # the kernel's barriers: one a stage with a stride >= 32R
+    if (num_keys, T) == (4, 8192):
+        assert stages == {"smem": 15, "shfl": 40, "reg": 36}
+
+
 def test_checks_and_tiles():
     for bad in (torch.zeros((3, 1000), dtype=torch.int32),
                 torch.zeros((3, 64), dtype=torch.int32),
@@ -125,6 +224,14 @@ def test_checks_and_tiles():
     assert bitonic.tile_rows_of(3, 1 << 20) == 8192
     assert bitonic.tile_rows_of(5, 1024) == 1024
     assert bitonic.tile_rows_of(5, 1 << 20, tile_rows=4) == 512
+    # K3a's launch geometry at the main path's tiles
+    assert bitonic.tile_geometry(8192, 5) == {"R": 8, "threads": 1024, "smem_bytes": 196608}
+    assert bitonic.tile_geometry(2048, 18) == {"R": 2, "threads": 1024, "smem_bytes": 155648}
+    assert bitonic.tile_geometry(512, 41)["threads"] == 256
+    assert bitonic.tile_geometry(4096, 3) == {"R": 4, "threads": 1024, "smem_bytes": 65536}
+    for T, ops in ((32, 2), (32768, 1), (8192, 7)):
+        with pytest.raises(ValueError):
+            bitonic.tile_geometry(T, ops)
     # the phase wrappers launch their kernels or raise
     p = torch.zeros((3, 1024), dtype=torch.int32)
     for call in (lambda: bitonic.tile_sort(p, 2, 512),
@@ -153,3 +260,18 @@ def test_bitonic_kernels_match_plain(rng):
         assert torch.equal(got, bitonic.bitonic_sort_plain(planes, num_keys, tile_rows))
         for name in ("bitonic_tile_sort", "bitonic_cross_stage", "bitonic_merge"):
             assert tdev.LAUNCHES[name] > before[name]
+    # K3a alone at every width the CLI reaches and every tile that fits,
+    # on tie-heavy rows and on rows 90% tied on their first word
+    for num_keys in (2, 4, 13, 17, 40):
+        for T in (128 << i for i in range(7)):
+            try:
+                bitonic.tile_geometry(T, num_keys + 1)
+            except ValueError:
+                break
+            for tie_first in (False, True):
+                planes = _planes(rng, 4 * T, num_keys)
+                if tie_first:
+                    planes[0, rng.random(4 * T) < 0.9] = 0x80000000
+                planes = _torch(planes).cuda()
+                assert torch.equal(bitonic.tile_sort(planes.clone(), num_keys, T),
+                                   bitonic.tile_sort_plain(planes, num_keys, T))

@@ -3,8 +3,10 @@ Pallas kernels in interpret mode, at the JAX tests' tile_rows and n_bins
 (tests/test_pallas_radix.py): splitters, overflow flag, each region's
 count of valid rows and each region's rows (lexsorted by all planes, as
 only the order of rows tied on the comparator words may differ); the
-collision flag; the plain phases composed one by one; and, on a card,
-every kernel against its plain version.  Tolerance: exact equality."""
+collision flag; the plain phases composed one by one; a numpy model of
+K4c's merge path (csrc/region_merge.cu) against the plain chunk sort;
+and, on a card, every kernel against its plain version.  Tolerance:
+exact equality."""
 
 import numpy as np
 import pytest
@@ -161,6 +163,169 @@ def test_phases_compose_to_the_plain_sort(rng):
     assert torch.equal(out, want) and torch.equal(over, want_over)
 
 
+MAX64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def _sw(k):
+    """region_merge.cu's shared-memory swizzle."""
+    return k ^ ((k >> 4) & 15)
+
+
+def _rec_less(ah, al, ai, bh, bl, bi):
+    return (ah < bh) | ((ah == bh) & ((al < bl) | ((al == bl) & (ai < bi))))
+
+
+def _merge_model(recs, region, C, run):
+    """K4c as region_merge.cu computes it, in numpy, one chunk at a time
+    and every thread of the block at once: the chunk padded with fill to
+    m in swizzled shared memory, each run's real count where its fill
+    tail starts, then per level each thread's co-rank by binary search
+    (a <= b takes the left run first), its P outputs merged from the two
+    heads, and the write-back."""
+    g = radix.region_merge_geometry(C, run)
+    m, threads, P = g["m"], g["threads"], g["P"]
+    assert threads * P == m and g["levels"] == (m // run).bit_length() - 1
+    hi = recs[0].numpy().view(np.uint64)
+    lo = recs[1].numpy().view(np.uint64)
+    idx = recs[2].numpy().view(np.uint32)
+    out = [hi.copy(), lo.copy(), idx.copy()]
+    k0 = np.arange(threads) * P
+    pos = np.arange(m)
+    assert np.array_equal(np.sort(_sw(pos)), pos)  # a bijection of [0, m)
+    for start in [r + c for r in range(0, len(hi), region) for c in range(0, region, C)]:
+        ln = min(C, region - start % region)
+        sh = np.full(m, MAX64)
+        sl = np.full(m, MAX64)
+        si = np.full(m, FULL)
+        sh[_sw(pos[:ln])], sl[_sw(pos[:ln])], si[_sw(pos[:ln])] = (
+            hi[start:start + ln], lo[start:start + ln], idx[start:start + ln])
+        real = si[_sw(pos)] != FULL
+        ends = real & (((pos + 1) % run == 0) | ~np.append(real[1:], False)) & (pos < ln)
+        n_real = np.zeros(m // run, dtype=np.int64)
+        assert np.bincount(pos[ends] // run, minlength=m // run).max(initial=0) <= 1
+        n_real[pos[ends] // run] = pos[ends] % run + 1
+
+        def at(k):
+            q = _sw(k)
+            return sh[q], sl[q], si[q]
+
+        w = run
+        while w < m:
+            pair = k0 // (2 * w)
+            d = k0 - pair * 2 * w
+            a0, b0 = pair * 2 * w, pair * 2 * w + w
+            na, nb = n_real[2 * pair], n_real[2 * pair + 1]
+            lo_i = np.where(d > nb, d - nb, 0)
+            hi_i = np.minimum(d, na)
+            live = d < na + nb
+            while True:
+                go = live & (lo_i < hi_i)
+                if not go.any():
+                    break
+                mid = (lo_i + hi_i) >> 1
+                a = at(np.where(go, a0 + mid, 0))
+                b = at(np.where(go, b0 + d - 1 - mid, 0))
+                le = ~_rec_less(*b, *a)
+                lo_i = np.where(go & le, mid + 1, lo_i)
+                hi_i = np.where(go & ~le, mid, hi_i)
+            i = np.where(live, lo_i, na)
+            j = np.where(live, d - lo_i, nb)
+            o = [np.empty((threads, P), dtype=x.dtype) for x in (sh, sl, si)]
+            for u in range(P):
+                ha = [np.where(i < na, x, f) for x, f in zip(at(a0 + np.minimum(i, w - 1)), (MAX64, MAX64, FULL))]
+                hb = [np.where(j < nb, x, f) for x, f in zip(at(b0 + np.minimum(j, w - 1)), (MAX64, MAX64, FULL))]
+                take_a = ~_rec_less(*hb, *ha)
+                for x, ya, yb in zip(o, ha, hb):
+                    x[:, u] = np.where(take_a, ya, yb)
+                i = i + take_a
+                j = j + ~take_a
+            q = _sw(k0[:, None] + np.arange(P))
+            sh[q], sl[q], si[q] = o
+            n_real[pair[d == 0]] = (na + nb)[d == 0]
+            w *= 2
+        for x, y in zip(out, (sh, sl, si)):
+            x[start:start + ln] = y[_sw(pos[:ln])]
+    return [torch.from_numpy(out[0].view(np.int64)), torch.from_numpy(out[1].view(np.int64)),
+            torch.from_numpy(out[2].view(np.int32))]
+
+
+def _slots(rng, n, w, tile_rows, n_bins, make=None):
+    """K4b's slots of a stream (the plain phases K4a, splitters, K4b):
+    records, region, the chunk C and the run length the sort uses."""
+    planes = torch.from_numpy((make or _stream)(rng, n, w).view(np.int32))
+    T, n_tiles, nb, cap, region = radix.geometry(n, tile_rows, n_bins)
+    s = radix.tile_sort_plain(planes, 4, T)
+    sp = radix.splitters(s[0], s[1], T, nb)
+    *recs, over = radix.partition_plain(planes, *s, *sp, w, 4, T, nb, cap)
+    C = min(T, region)
+    return recs, region, C, min(cap, C)
+
+
+MERGE_CASES = {
+    # (n, w, tile_rows, n_bins): 8 runs a chunk; 3 runs padded to 4 (one
+    # chunk a region, region < T); 2 runs and a short 1-run last chunk
+    # (region 3 * cap > T); n_bins = 1 (one run: no level)
+    "slots_8_runs": (8 * 8192, 5, 64, 16),
+    "3_runs_padded_to_4": (3 * 8192, 5, 64, 8),
+    "short_last_chunk": (3 * 4096, 3, 32, 4),
+    "one_bin": (2 * 2048, 4, 16, 1),
+}
+
+
+@pytest.mark.parametrize("make", ["stream", "skewed"])
+@pytest.mark.parametrize("case", list(MERGE_CASES))
+def test_region_merge_model_matches_plain(rng, case, make):
+    """On duplicated keys with sentinels, and on Zipf-ish multiplicities
+    (long runs of records tied on hi and lo, settled by idx)."""
+    n, w, tile_rows, n_bins = MERGE_CASES[case]
+    recs, region, C, run = _slots(rng, n, w, tile_rows, n_bins,
+                                  {"stream": _stream, "skewed": _skewed}[make])
+    levels = {"slots_8_runs": 3, "3_runs_padded_to_4": 2, "short_last_chunk": 1, "one_bin": 0}
+    assert radix.region_merge_geometry(C, run)["levels"] == levels[case]
+    want = radix.region_sort_plain(*recs, region, C)
+    got = _merge_model(recs, region, C, run)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_region_merge_model_on_full_and_empty_runs(rng):
+    """Runs with no fill at all and runs that are all fill, mixed in one
+    chunk, through the model."""
+    recs, region, C, run = _slots(rng, 8 * 8192, 5, 64, 16)
+    hi, lo, idx = (r.clone() for r in recs)
+    n_runs = hi.shape[0] // run
+    for q in range(0, n_runs, 3):  # every third run full of real records
+        a = q * run
+        key = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, size=run))
+        key = torch.sort(key).values
+        hi[a:a + run] = key
+        lo[a:a + run] = torch.arange(run)
+        idx[a:a + run] = torch.arange(10_000_000 + a, 10_000_000 + a + run, dtype=torch.int32)
+    for q in range(1, n_runs, 3):  # every third run all fill
+        a = q * run
+        hi[a:a + run], lo[a:a + run], idx[a:a + run] = -1, -1, -1
+    # the signed order of hi above is not the unsigned order the records
+    # use: sort each full run again as unsigned records
+    for q in range(0, n_runs, 3):
+        a = q * run
+        h, l, i = radix.region_sort_plain(hi[a:a + run], lo[a:a + run], idx[a:a + run], run, run)
+        hi[a:a + run], lo[a:a + run], idx[a:a + run] = h, l, i
+    want = radix.region_sort_plain(hi, lo, idx, region, C)
+    got = _merge_model((hi, lo, idx), region, C, run)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_region_merge_geometry():
+    # step 2's and step 3's shapes: 8192-record chunks of 1024-record slots
+    assert radix.region_merge_geometry(8192, 1024) == {
+        "m": 8192, "run": 1024, "levels": 3, "P": radix.MERGE_OUTPUTS,
+        "threads": 8192 // radix.MERGE_OUTPUTS, "smem_bytes": 163840}
+    # a short chunk is padded to the next power of two
+    assert radix.region_merge_geometry(6144, 2048)["threads"] == 8192 // radix.MERGE_OUTPUTS
+    for bad in ((8192, 1000), (16384, 1024), (8192, 64), (4, 4)):
+        with pytest.raises(ValueError):
+            radix.region_merge_geometry(*bad)
+
+
 def test_phase_kernels_take_cuda_tensors_only(rng):
     """The phase wrappers launch their kernels or raise; only
     partition_sort routes CPU tensors to the plain version."""
@@ -169,7 +334,7 @@ def test_phase_kernels_take_cuda_tensors_only(rng):
     with pytest.raises(ValueError, match="unsupported device"):
         radix.tile_sort(planes, 4, 2048)
     with pytest.raises(ValueError, match="unsupported device"):
-        radix.region_sort(*recs, 2048, 1024)
+        radix.region_sort(*recs, 2048, 1024, 1024)
     with pytest.raises(ValueError, match="unsupported device"):
         radix.merge_pass(*recs, 2048, 1024, final=(planes, 4))
 
@@ -203,3 +368,17 @@ def test_radix_kernels_match_plain(rng):
         for name in ("radix_tile_sort", "radix_partition", "radix_region_sort",
                      "radix_merge_pass"):
             assert tdev.LAUNCHES[name] > before[name]
+    # K4c alone on K4b's slots (8 runs a chunk; 3 runs padded to 4; a
+    # short last chunk; one bin), as records and with the final gather
+    for n, w, tile_rows, n_bins in MERGE_CASES.values():
+        planes = torch.from_numpy(_stream(rng, n, w).view(np.int32)).cuda()
+        T, n_tiles, nb, cap, region = radix.geometry(n, tile_rows, n_bins)
+        s = radix.tile_sort(planes, 4, T)
+        sp = radix.splitters(s[0], s[1], T, nb)
+        *recs, over = radix.partition(planes, *s, *sp, w, 4, T, nb, cap)
+        C = min(T, region)
+        want = radix.region_sort_plain(*recs, region, C)
+        got = radix.region_sort(*recs, region, C, min(cap, C))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        got = radix.region_sort(*recs, region, C, min(cap, C), final=(planes, w))
+        assert torch.equal(got, radix.gather_plain(want[2], planes, w))

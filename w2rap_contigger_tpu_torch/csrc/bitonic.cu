@@ -1,11 +1,11 @@
-// K3a/K3b: bitonic sort of a kmer stream (Hopper, sm_90a).
+// K3b and the cross stage: bitonic sort of a kmer stream (Hopper, sm_90a).
 //
 // Replaces the TPU kernels of w2rap_contigger_tpu/ops/pallas_sort.py,
 // launched by _sort_planes (:206-255):
 //
 //   K3a _tile_sort_kernel (:140, launched :220)
-//       -> tile_sort_kernel: one block runs levels 2..T of the network on
-//          one tile of T rows in shared memory;
+//       -> bitonic_tile.cu: one block runs levels 2..T of the network on
+//          one tile of T rows as a key-index network;
 //   XLA _cross_stage (:183, called :249)
 //       -> cross_stage_kernel: one compare-exchange pass at a stride >= T,
 //          one thread per pair;
@@ -31,10 +31,10 @@
 // Bound on this card: device memory.  A tile pass or a cross pass reads and
 // writes every plane once (a cross pass writes only swapped pairs); the
 // sort is 1 tile pass, log2(n/T) merge passes and log2(n/T) (log2(n/T) +
-// 1) / 2 cross passes.  The design keeps the
-// log2(T) (log2(T) + 1) / 2 in-tile stages in shared memory (T as large
-// as 160 KB of rows allows); fusing several cross strides into one pass
-// is the next step.
+// 1) / 2 cross passes.  merge_kernel runs the log2(T) in-tile stages of a
+// merge level in shared memory, moving whole rows (T as large as 160 KB
+// of rows allows); fusing several cross strides into one pass is the
+// next step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -97,17 +97,6 @@ __device__ __forceinline__ void store_tile(const uint32_t* s, uint32_t* planes,
   }
 }
 
-// K3a: levels 2..T of the network on tile blockIdx.x.
-__global__ void __launch_bounds__(TILE_THREADS)
-tile_sort_kernel(uint32_t* planes, int64_t n, int num_ops, int num_keys, int T) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int64_t base = (int64_t)blockIdx.x * T;
-  load_tile(planes, smem, n, num_ops, T, base);
-  for (int size = 2; size <= T; size <<= 1)
-    tile_strides(smem, T, num_ops, num_keys, base, size, size >> 1);
-  store_tile(smem, planes, n, num_ops, T, base);
-}
-
 // K3b: strides T/2..1 of the merge level `size` (> T) on tile blockIdx.x.
 __global__ void __launch_bounds__(TILE_THREADS)
 merge_kernel(uint32_t* planes, int64_t n, int num_ops, int num_keys, int T,
@@ -166,22 +155,6 @@ cross_stage_kernel(uint32_t* planes, int64_t n, int num_ops, int num_keys,
 int tile_threads(int T) { return T / 2 < TILE_THREADS ? T / 2 : TILE_THREADS; }
 
 }  // namespace
-
-// planes: (num_ops, n) u32 planes, sorted in place; T a power of two
-// dividing n, num_ops * T * 4 bytes of shared memory.  Returns
-// cudaGetLastError().
-extern "C" int w2rap_bitonic_tile_sort(void* planes, int64_t n, int num_ops,
-                                       int num_keys, int T, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const int bytes = num_ops * T * (int)sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  tile_sort_kernel<<<(unsigned)(n / T), tile_threads(T), bytes,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(planes), n, num_ops, num_keys, T);
-  return (int)cudaGetLastError();
-}
 
 // One merge level `size` (a power of two > T), strides T/2..1.
 extern "C" int w2rap_bitonic_merge(void* planes, int64_t n, int num_ops,

@@ -1,4 +1,4 @@
-// K4a-d: partition (sample) sort of a kmer stream (Hopper, sm_90a).
+// K4a, K4b, K4d: partition (sample) sort of a kmer stream (Hopper, sm_90a).
 //
 // Replaces the TPU kernels of w2rap_contigger_tpu/ops/pallas_radix.py,
 // launched by _partition_sort_planes (:330-457):
@@ -9,7 +9,8 @@
 //       -> partition_kernel: one block cuts one sorted tile into its
 //          per-bin slots;
 //   K4c _tile_sort_dyn_kernel (:108, launched :422)
-//       -> region_sort_kernel: one block sorts one chunk of a bin region;
+//       -> region_merge.cu: one block merges the sorted runs of one chunk
+//          of a bin region;
 //   K4d _descend_kernel (:162, launched :443) with the XLA
 //       _cross_stage_region (:188)
 //       -> merge_pass_kernel: one merge-path level over every region.
@@ -17,12 +18,11 @@
 // The TPU kernels move all 4-18 u32 planes through every compare-exchange
 // of a bitonic network in VMEM tiles.  Here the planes are read once to
 // build a record per row and gathered once at the end: a record is
-// (hi, lo, idx) with hi = w0 << 32 | w1 and lo = w2 << 32 | w3 over the
-// first cmp_keys (<= 4) key words (missing words 0) and idx the row's
-// index in the input.  Records compare lexicographically on (hi, lo, idx):
-// since idx is unique, every sort below is a stable sort on the key words,
-// and the output is a pure function of the input (sentinel fill records,
-// (~0, ~0, ~0), are identical, so their order does not matter).
+// (hi, lo, idx) (records.cuh) over the first cmp_keys (<= 4) key words and
+// the row's index.  Since idx is unique, every sort below is a stable sort
+// on the key words, and the output is a pure function of the input
+// (sentinel fill records, (~0, ~0, ~0), are identical, so their order
+// does not matter).
 //
 // Phases (ops/radix.py composes them and builds the splitters in torch):
 //   1. tile_sort_kernel: tile t (rows [t*T, (t+1)*T)) -> records sorted,
@@ -36,9 +36,10 @@
 //      cap) go to slot (bin b, tile t) of cap records, the rest of the slot
 //      is fill.  overflow += slots holding more than cap - 128 rows, plus
 //      real rows whose cmp_keys words are all ones (pallas_radix.py:
-//      252-275, 306-311): the flag is the TPU kernel's exactly.
-//   3. region_sort_kernel: every chunk of C records of a region (a bin's
-//      n_tiles slots) sorted in shared memory.
+//      252-275, 306-311): the flag is the TPU kernel's exactly.  Every slot
+//      is therefore a sorted run: a tile's sorted rows, then fill.
+//   3. region_merge.cu: every chunk of C records of a region (C / cap
+//      slots) merged into one sorted run.
 //   4. merge_pass_kernel, width C, 2C, ... below the region: each record
 //      of a left run moves to (its index) + #records of the right run that
 //      are smaller; each record of a right run to (its index) + #records
@@ -56,23 +57,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "records.cuh"
+
 namespace {
 
-constexpr uint32_t FULL = 0xFFFFFFFFu;
-constexpr uint64_t MAX64 = ~0ull;
-constexpr uint32_t FILL_IDX = 0xFFFFFFFFu;
 constexpr int SORT_THREADS = 1024;
 constexpr int PART_THREADS = 256;
 constexpr int MERGE_THREADS = 256;
-constexpr int RECORD_BYTES = 8 + 8 + 4;
-
-__device__ __forceinline__ bool rec_less(uint64_t ah, uint64_t al, uint32_t ai,
-                                         uint64_t bh, uint64_t bl,
-                                         uint32_t bi) {
-  if (ah != bh) return ah < bh;
-  if (al != bl) return al < bl;
-  return ai < bi;
-}
 
 __device__ __forceinline__ void key_of(const uint32_t* __restrict__ planes,
                                        int64_t n, int cmp_keys, int64_t row,
@@ -81,17 +72,6 @@ __device__ __forceinline__ void key_of(const uint32_t* __restrict__ planes,
   for (int j = 0; j < cmp_keys; ++j) w[j] = planes[j * n + row];
   hi = ((uint64_t)w[0] << 32) | w[1];
   lo = ((uint64_t)w[2] << 32) | w[3];
-}
-
-// Gather one output row of every plane through a record's idx.
-__device__ __forceinline__ void write_row(const uint32_t* __restrict__ planes,
-                                          int64_t n, int num_ops, int num_keys,
-                                          uint32_t* __restrict__ out,
-                                          int64_t total, int64_t dst,
-                                          uint32_t idx) {
-  for (int j = 0; j < num_ops; ++j)
-    out[j * total + dst] = idx != FILL_IDX ? planes[j * n + (int64_t)idx]
-                                           : (j < num_keys ? FULL : 0u);
 }
 
 // Ascending bitonic sort of m (a power of two) records in shared memory.
@@ -249,48 +229,6 @@ partition_kernel(const uint32_t* __restrict__ planes, int64_t n, int num_keys,
   }
 }
 
-// K4c: sort each chunk of C records of every region into d_*, or, when
-// it is the last phase, gather the sorted chunk's planes into out.
-__global__ void __launch_bounds__(SORT_THREADS)
-region_sort_kernel(const uint64_t* __restrict__ r_hi,
-                   const uint64_t* __restrict__ r_lo,
-                   const uint32_t* __restrict__ r_idx,
-                   uint64_t* __restrict__ d_hi, uint64_t* __restrict__ d_lo,
-                   uint32_t* __restrict__ d_idx, int64_t region, int C,
-                   int chunks_per_region, int m, int final,
-                   const uint32_t* __restrict__ planes, int64_t n,
-                   int num_ops, int num_keys, uint32_t* __restrict__ out,
-                   int64_t total) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Smem s = carve(smem, m);
-  const int64_t r = blockIdx.x / chunks_per_region;
-  const int64_t c = blockIdx.x % chunks_per_region;
-  const int64_t start = r * region + c * C;
-  const int64_t left = region - c * C;
-  const int len = left < C ? (int)left : C;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    if (i < len) {
-      s.hi[i] = r_hi[start + i];
-      s.lo[i] = r_lo[start + i];
-      s.idx[i] = r_idx[start + i];
-    } else {
-      s.hi[i] = MAX64;
-      s.lo[i] = MAX64;
-      s.idx[i] = FILL_IDX;
-    }
-  }
-  block_sort(s.hi, s.lo, s.idx, m);
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    if (final) {
-      write_row(planes, n, num_ops, num_keys, out, total, start + i, s.idx[i]);
-    } else {
-      d_hi[start + i] = s.hi[i];
-      d_lo[start + i] = s.lo[i];
-      d_idx[start + i] = s.idx[i];
-    }
-  }
-}
-
 // K4d: one merge level; runs of `width` records inside each region merge
 // pairwise into runs of 2*width (the last run of a region may be short or
 // have no partner).
@@ -382,35 +320,6 @@ extern "C" int w2rap_radix_partition(
       static_cast<const uint32_t*>(s_idx), static_cast<uint64_t*>(r_hi),
       static_cast<uint64_t*>(r_lo), static_cast<uint32_t*>(r_idx), region,
       static_cast<int*>(overflow));
-  return (int)cudaGetLastError();
-}
-
-// r_* -> d_*: (total,) records, total a multiple of region; C <= 8192.
-// final: gather (num_ops, total) u32 planes into out instead of writing
-// records.  Returns cudaGetLastError().
-extern "C" int w2rap_radix_region_sort(const void* r_hi, const void* r_lo,
-                                       const void* r_idx, void* d_hi,
-                                       void* d_lo, void* d_idx, int64_t total,
-                                       int64_t region, int C, int final,
-                                       const void* planes, int64_t n,
-                                       int num_ops, int num_keys, void* out,
-                                       void* stream) {
-  if (total <= 0) return (int)cudaSuccess;
-  int m = 1;
-  while (m < C) m <<= 1;
-  const int bytes = sort_smem_bytes(m);
-  cudaError_t err = cudaFuncSetAttribute(
-      region_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t cpr = (region + C - 1) / C;
-  region_sort_kernel<<<(unsigned)((total / region) * cpr), SORT_THREADS,
-                       bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(r_hi), static_cast<const uint64_t*>(r_lo),
-      static_cast<const uint32_t*>(r_idx), static_cast<uint64_t*>(d_hi),
-      static_cast<uint64_t*>(d_lo), static_cast<uint32_t*>(d_idx), region, C,
-      (int)cpr, m, final,
-      static_cast<const uint32_t*>(planes), n, num_ops, num_keys,
-      static_cast<uint32_t*>(out), total);
   return (int)cudaGetLastError();
 }
 

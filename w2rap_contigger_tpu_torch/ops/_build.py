@@ -1,8 +1,8 @@
 """Build and load the hand-written Hopper kernels.
 
-Every `csrc/*.cu` is compiled by its own nvcc, all started together,
-and the objects are linked into one shared library with a plain C
-interface, loaded with ctypes:
+Every `csrc/*.cu` is compiled by its own nvcc, all started together
+(`csrc/*.cuh` are headers they include), and the objects are linked
+into one shared library with a plain C interface, loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -c -o <build>/<hash>/<name>.o csrc/<name>.cu
@@ -10,8 +10,8 @@ interface, loaded with ctypes:
          -o <build>/<hash>/libw2rap_kernels.so <build>/<hash>/*.o
 
 The build directory (`w2rap_contigger_tpu_torch/csrc/build/`, listed in
-.gitignore) is keyed by a hash of the sources and flags, so a library is
-built once per source state, at first use.  A missing nvcc or a failed
+.gitignore) is keyed by a hash of the sources, headers and flags, so a
+library is built once per source state, at first use.  A missing nvcc or a failed
 build raises: there is no fallback.
 """
 
@@ -46,10 +46,13 @@ _SIGNATURES = {
     "w2rap_radix_partition": [_P, _I64, _I32, _I32, _I32, _I32, _I32,
                               _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "w2rap_radix_region_sort": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32,
-                                _I32, _P, _I64, _I32, _I32, _P, _P],
+                                _I32, _I32, _I32, _I32, _P, _I64, _I32, _I32,
+                                _P, _P],
+    "w2rap_radix_region_sort_attrs": [_P],
     "w2rap_radix_merge_pass": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                                _I32, _P, _I64, _I32, _I32, _P, _P],
-    "w2rap_bitonic_tile_sort": [_P, _I64, _I32, _I32, _I32, _P],
+    "w2rap_bitonic_tile_sort": [_P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P],
+    "w2rap_bitonic_tile_sort_attrs": [_I32, _P],
     "w2rap_bitonic_merge": [_P, _I64, _I32, _I32, _I32, _I64, _P],
     "w2rap_bitonic_cross_stage": [_P, _I64, _I32, _I32, _I64, _I64, _P],
 }
@@ -72,9 +75,13 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
 
 
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
 def _digest(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *headers()]:
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             h.update(f.read())
@@ -128,6 +135,17 @@ def library():
             fn.restype = ctypes.c_int
         _LIB = lib
         return lib
+
+
+def kernel_attrs(entry: str, *variant: int) -> dict:
+    """Registers a thread, spilled (local) bytes a thread, static shared
+    bytes and most threads a block of one compiled kernel (of the template
+    instance `variant`, where the kernel has several), from
+    cudaFuncGetAttributes through the entry point `entry` (`*_attrs`)."""
+    buf = (ctypes.c_int * 4)()
+    check(getattr(library(), entry)(*variant, buf), entry)
+    return {"regs": buf[0], "local_bytes": buf[1], "static_smem": buf[2],
+            "max_threads": buf[3]}
 
 
 def check(err: int, name: str) -> None:

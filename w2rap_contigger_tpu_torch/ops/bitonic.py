@@ -1,6 +1,7 @@
 """K3a/K3b: bitonic sort of a kmer stream (W2RAP_SORT=pallas).
 
-`bitonic_sort` runs the CUDA kernels of csrc/bitonic.cu, which replace
+`bitonic_sort` runs the CUDA kernels of csrc/bitonic_tile.cu (K3a) and
+csrc/bitonic.cu (the cross stage and K3b), which replace
 the TPU kernels of w2rap_contigger_tpu/ops/pallas_sort.py (`bitonic_sort`
 :258, `_sort_planes` :206-255); `bitonic_sort_plain` is the same network
 in plain PyTorch, and the wrapper takes it only for tensors on the CPU.
@@ -22,7 +23,10 @@ plain version side by side; the phase wrappers take CUDA tensors only and
 sort in place, as bitonic_sort does (it alone routes CPU tensors to the
 plain version, which returns a new tensor):
 
-  tile_sort   (K3a)  levels 2..T inside every tile of T rows;
+  tile_sort   (K3a)  levels 2..T inside every tile of T rows, as a
+                     key-index network: only (row index, first key
+                     word) pairs move, R a thread (tile_geometry), the
+                     planes sit still in shared memory and move once;
   cross_stage        one stride >= T of a merge level (XLA in JAX,
                      _cross_stage :183; a kernel here: torch would need
                      about 3 (W+1) launches a stride);
@@ -44,6 +48,7 @@ from . import bitkmer as bk
 LANES = 128
 TILE_BYTES = 160 * 1024  # a default tile's rows in one block's shared memory
 SMEM_MAX_BYTES = 232_448  # the most shared memory a block may opt in to
+TILE_THREADS = 1024  # K3a: the most threads a block
 
 
 # ---------------------------------------------------------------------------
@@ -63,6 +68,26 @@ def tile_rows_of(num_ops: int, n: int, tile_rows: int | None = None) -> int:
         if T <= 0 or T & (T - 1):
             raise ValueError(f"tile of {T} rows: must be a power of two")
     return min(T, n)
+
+
+def tile_geometry(T: int, num_ops: int) -> dict:
+    """Launch geometry of K3a on T-row tiles of num_ops planes: R rows a
+    thread (the least of 2, 4, 8, 16 that keeps T / R <= 1024 threads:
+    more threads hide more latency, and R = 2 beat 4 and 8 at T = 2048,
+    `scripts/sort_kernel_ab.py`), threads = T / R (at least a
+    warp), and the dynamic shared memory: the planes plus two u16 index
+    buffers.  Strides below R run in registers, R..16R by warp shuffles,
+    32R and above through shared memory."""
+    R = max(2, T // TILE_THREADS)
+    smem = num_ops * T * 4 + 4 * T
+    if T & (T - 1) or R not in (2, 4, 8, 16) or not 32 <= T // R <= TILE_THREADS:
+        raise ValueError(f"K3a: a tile of {T} rows at {R} a thread")
+    if smem > SMEM_MAX_BYTES:
+        raise ValueError(
+            f"K3a: a tile of {T} rows x {num_ops} planes and its indices need "
+            f"{smem} bytes, more than one block's {SMEM_MAX_BYTES}"
+        )
+    return {"R": R, "threads": T // R, "smem_bytes": smem}
 
 
 def _check(planes: torch.Tensor, num_keys: int) -> int:
@@ -200,13 +225,21 @@ def bitonic_sort_plain(planes: torch.Tensor, num_keys: int,
 def tile_sort(planes: torch.Tensor, num_keys: int, T: int) -> torch.Tensor:
     """K3a on CUDA tensors, in place (tile_sort_plain is the plain version)."""
     _launch_ready(planes, num_keys, T)
+    if planes.data_ptr() % 16:
+        raise ValueError("K3a takes 16-byte aligned planes (16 B vector loads)")
+    g = tile_geometry(T, planes.shape[0])
     err = _build.library().w2rap_bitonic_tile_sort(
         planes.data_ptr(), planes.shape[1], planes.shape[0], num_keys, T,
-        _stream(planes),
+        g["R"], g["threads"], g["smem_bytes"], _stream(planes),
     )
     _build.check(err, "w2rap_bitonic_tile_sort")
     tdev.count_launch("bitonic_tile_sort")
     return planes
+
+
+def tile_sort_attrs(R: int) -> dict:
+    """Registers, spills and static shared memory of K3a's kernel for R."""
+    return _build.kernel_attrs("w2rap_bitonic_tile_sort_attrs", R)
 
 
 def cross_stage(planes: torch.Tensor, num_keys: int, s: int, size: int) -> torch.Tensor:

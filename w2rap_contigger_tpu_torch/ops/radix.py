@@ -1,11 +1,11 @@
 """K4a-d: partition (sample) sort of a kmer stream.
 
-`partition_sort` runs the CUDA kernels of csrc/radix.cu, which replace
-the TPU kernels of w2rap_contigger_tpu/ops/pallas_radix.py
-(`partition_sort` :482-520, `_partition_sort_planes` :330-457);
-`partition_sort_plain` is the same function in plain PyTorch, and the
-wrapper takes it only for tensors on the CPU.  `collision_flag` is plain
-torch, as it is XLA in JAX (:460-479).
+`partition_sort` runs the CUDA kernels of csrc/radix.cu (K4a, K4b, K4d)
+and csrc/region_merge.cu (K4c), which replace the TPU kernels of
+w2rap_contigger_tpu/ops/pallas_radix.py (`partition_sort` :482-520,
+`_partition_sort_planes` :330-457); `partition_sort_plain` is the same
+function in plain PyTorch, and the wrapper takes it only for tensors on
+the CPU.  `collision_flag` is plain torch, as it is XLA in JAX (:460-479).
 
 Contract of partition_sort(planes, num_keys, cmp_keys, tile_rows, n_bins)
 on (num_ops, n) int32 planes of raw u32 bits (the first num_keys are key
@@ -37,7 +37,11 @@ tensors to the plain version):
   tile_sort   (K4a)  planes -> records (hi, lo, idx) sorted per tile;
   splitters          sorted records -> (n_bins - 1) splitter keys (torch);
   partition   (K4b)  sorted records -> per-(bin, tile) slots + overflow;
-  region_sort (K4c)  slots -> every C-record chunk of a region sorted;
+                     every slot a sorted run: a tile's rows, then fill;
+  region_sort (K4c)  every C-record chunk of a region, made of sorted runs
+                     of `run` = min(cap, C) records (K4b's slots), merged
+                     into one sorted run (merge path in shared memory,
+                     log2(C / run) levels; region_merge_geometry);
   merge_pass  (K4d)  one merge level of runs of `width` records;
   gather             records -> the output planes (fused into the last
                      kernel on the card).
@@ -65,6 +69,9 @@ MAX_TILE = 8192  # records a block sorts in shared memory (20 B each)
 DEFAULT_TILE_ROWS = 64
 DEFAULT_REGION_ROWS = 1024  # target region rows / 128 for the default n_bins
 CAP_FACTOR = 2  # slot capacity = CAP_FACTOR * tile / bins
+MERGE_OUTPUTS = 8  # K4c: records a thread merges per level (P, region_merge.cu)
+MAX_RUNS = 64  # K4c: sorted runs a chunk may hold
+RECORD_BYTES = 20  # hi, lo, idx (records.cuh)
 
 SIGN64 = -(1 << 63)  # xor flips u64 bits held in int64 into signed order
 FILL_IDX = -1  # u32 0xFFFFFFFF
@@ -93,6 +100,21 @@ def geometry(n: int, tile_rows: int | None = None, n_bins: int | None = None):
         n_bins //= 2
     cap = CAP_FACTOR * T // n_bins
     return T, n_tiles, n_bins, cap, n_tiles * cap
+
+
+def region_merge_geometry(C: int, run: int) -> dict:
+    """Launch geometry of K4c on chunks of C records made of sorted runs
+    of `run`: m (the power of two >= C the chunk is padded to with fill),
+    the merge levels log2(m / run), P records a thread merges per level,
+    threads = m / P, and the dynamic shared memory (20 B a record)."""
+    P = MERGE_OUTPUTS
+    m = 1 << max(C - 1, 0).bit_length()
+    if not 0 < run <= m or run & (run - 1):
+        raise ValueError(f"K4c geometry: run {run}, C {C}")
+    if m > MAX_TILE or m // run > MAX_RUNS or m < P:
+        raise ValueError(f"K4c geometry: a chunk of {C} records in runs of {run}")
+    return {"m": m, "run": run, "levels": (m // run).bit_length() - 1, "P": P,
+            "threads": m // P, "smem_bytes": m * RECORD_BYTES}
 
 
 def _check(planes: torch.Tensor, num_keys: int, cmp_keys: int) -> int:
@@ -326,11 +348,20 @@ def merge_widths(region: int, C: int) -> list[int]:
     return widths
 
 
-def region_sort(r_hi, r_lo, r_idx, region: int, C: int, final=None):
+def region_sort(r_hi, r_lo, r_idx, region: int, C: int, run: int, final=None):
     """K4c on CUDA tensors (region_sort_plain, then gather_plain, is the
-    plain version).  final = (planes, num_keys): gather the output planes
+    plain version): every C-record chunk of a region, which must consist
+    of sorted runs of `run` records (K4b's slots), merged into one sorted
+    run.  final = (planes, num_keys): gather the output planes
     (num_ops, total) instead of returning records."""
-    return _launch_records("region_sort", (r_hi, r_lo, r_idx), (region, C), final)
+    g = region_merge_geometry(C, run)
+    return _launch_records("region_sort", (r_hi, r_lo, r_idx),
+                           (region, C, run, g["m"], g["threads"]), final)
+
+
+def region_sort_attrs() -> dict:
+    """Registers, spills and static shared memory of K4c's kernel."""
+    return _build.kernel_attrs("w2rap_radix_region_sort_attrs")
 
 
 def merge_pass(r_hi, r_lo, r_idx, region: int, width: int, final=None):
@@ -385,7 +416,7 @@ def _partition_sort(planes, num_keys, cmp_keys, tile_rows, n_bins, plain):
     final = (planes, num_keys)
     C = min(T, region)
     widths = merge_widths(region, C)
-    recs = region_sort(*recs, region, C, final=None if widths else final)
+    recs = region_sort(*recs, region, C, min(cap, C), final=None if widths else final)
     for i, w in enumerate(widths):
         recs = merge_pass(*recs, region, w, final=final if i == len(widths) - 1 else None)
     return recs, overflow
