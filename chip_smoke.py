@@ -14,18 +14,22 @@ exits non-zero and prints no result line:
    sentinels, and on a W=17 stream in the partition sort's layout, with
    sentinel runs mid-stream), with both times;
 3b. K4a-d (the partition sort) against their plain versions, kernel by
-   kernel and whole, bit-identical: (a) step 2's shape, 210.1M rows of
+   kernel and whole, bit-identical: K4a (the key-index tile sort,
+   csrc/radix.cu on csrc/keyindex_net.cuh) first alone at cmp_keys 1-4
+   on odd tile counts of tie-heavy rows, with rows all ones in the
+   comparator words; then (a) step 2's shape, 210.1M rows of
    4 key words + payload; (b) step 3's shape at K=260, 17 key words with
    ctx in the pad bits, at the row count phase 6 counted; K4c (the merge
    of K4b's sorted slots, csrc/region_merge.cu) also with its final
    gather; each kernel's time, its plain version's, its bound, and one
    stable torch.sort of the leading int64 key as the library yardstick;
-   K4c's launch geometry, registers, spills and shared bytes; plus a
-   skewed stream and one with real rows all ones in the comparator
-   words, which must both raise the overflow flag;
+   K4a's and K4c's launch geometry, registers, spills and shared bytes;
+   plus a skewed stream and one with real rows all ones in the
+   comparator words, which must both raise the overflow flag;
 3c. K3a (the key-index tile sort, csrc/bitonic_tile.cu), the cross stage
-   and K3b (the bitonic sort) against their plain versions, phase by
-   phase and whole, bit-identical: K3a first alone at W = 2, 4, 13, 17,
+   and K3b (the key-index merge level, csrc/bitonic.cu; both on
+   csrc/keyindex_net.cuh) against their plain versions, phase by phase
+   and whole, bit-identical: K3a and K3b first alone at W = 2, 4, 13, 17,
    40 on tiles of 128..8192 rows, on tie-heavy rows and on rows of which
    90% share their first word; then (a) step 2's shape, 2^28 rows of 4
    key words + payload; (b) step 3's, the power of two above phase 6's
@@ -33,9 +37,9 @@ exits non-zero and prints no result line:
    one in-place sort, its launches in that sort, its plain version's
    time, its bound (a cross pass: the key words its pairs compare and the
    rows it swaps, counted on the data), one stable torch.sort of the
-   leading int64 key as the library yardstick, K3a's launch geometry,
-   registers, spills and shared bytes, and the in-place sort's peak
-   device memory;
+   leading int64 key as the library yardstick, K3a's and K3b's launch
+   geometry, registers, spills and shared bytes, and the in-place sort's
+   peak device memory;
 4. step 2 through the port's CLI entry on a 200 kb genome / 24k PE250
    pairs, --device cuda against --device cpu: small_K.freqs, HBV and
    paths must be identical;
@@ -393,6 +397,9 @@ def check_radix(label: str, planes: torch.Tensor, num_keys: int, cmp_keys: int) 
     b, by = bound_ms(n * (4 * cmp_keys + 20), n / 2 * lt * (lt + 1) / 2)
     res["radix_tile_sort"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b, bound_by=by)
+    geo = bitonic.tile_geometry(T, cmp_keys)
+    say("radix_geometry", case=label, kernel="radix_tile_sort", tile=T, **geo,
+        **radix.tile_sort_attrs(geo["R"]))
 
     # K4b
     sp = radix.splitters(s[0], s[1], T, n_bins)
@@ -484,6 +491,30 @@ def check_radix(label: str, planes: torch.Tensor, num_keys: int, cmp_keys: int) 
     if overflow:
         fail(f"K4 {label}: the slots overflowed on a uniform stream")
     return res
+
+
+def check_radix_tiles():
+    """K4a alone against its plain version at cmp_keys 1-4 on 3 and 5
+    tiles of 128, 2048 and 8192 rows: tie-heavy rows of 5 key words, rows
+    90% tied on their first word, and 5% of rows all ones in their
+    comparator words only (they must end each tile, in row order)."""
+    cases = 0
+    for cmp_keys in (1, 2, 3, 4):
+        for T, tiles in ((128, 5), (2048, 3), (8192, 3)):
+            for tie_first in (0.0, 0.9):
+                planes = tie_stream(5, T * tiles, SEED + 31 * T + cmp_keys, tie_first)
+                g = torch.Generator(device=DEV)
+                g.manual_seed(SEED + cmp_keys)
+                full = torch.rand(T * tiles, device=DEV, generator=g) < 0.05
+                planes[:cmp_keys, full] = -1
+                got = radix.tile_sort(planes, cmp_keys, T)
+                want = radix.tile_sort_plain(planes, cmp_keys, T)
+                err = max_abs_err(got, want)
+                if err:
+                    fail(f"K4a cmp_keys={cmp_keys} T={T} tie_first={tie_first} differs "
+                         f"from its plain version (max_abs_err {err})")
+                cases += 1
+    say("radix_tiles", cmp_keys="1..4", tiles="128,2048,8192", cases=cases, identical=True)
 
 
 def check_radix_flags():
@@ -581,10 +612,10 @@ def tie_stream(W: int, n: int, seed: int, tie_first: float) -> torch.Tensor:
 
 
 def check_bitonic_tiles():
-    """K3a alone against its plain version at W = 2, 4, 13, 17, 40 on every
-    tile of 128..8192 rows whose planes and indices fit one block, four
-    tiles each, on tie-heavy rows and on rows 90% tied on their first
-    word."""
+    """K3a, and K3b at levels 2T and 4T, alone against their plain
+    versions at W = 2, 4, 13, 17, 40 on every tile of 128..8192 rows whose
+    planes and indices fit one block, four tiles each, on tie-heavy rows
+    and on rows 90% tied on their first word."""
     cases = 0
     for W in (2, 4, 13, 17, 40):
         T = 128
@@ -598,10 +629,15 @@ def check_bitonic_tiles():
                 got = bitonic.tile_sort(planes.clone(), W, T)
                 if not torch.equal(got, bitonic.tile_sort_plain(planes, W, T)):
                     fail(f"K3a W={W} T={T} tie_first={tie_first} differs from its plain version")
+                for size in (2 * T, 4 * T):
+                    got = bitonic.merge_level(planes.clone(), W, T, size)
+                    if not torch.equal(got, bitonic.merge_level_plain(planes, W, T, size)):
+                        fail(f"K3b W={W} T={T} size={size} tie_first={tie_first} differs "
+                             f"from its plain version")
                 cases += 1
             T *= 2
-    say("bitonic_tiles", widths="2,4,13,17,40", tiles="128..8192", cases=cases,
-        identical=True)
+    say("bitonic_tiles", kernels="K3a,K3b", widths="2,4,13,17,40", tiles="128..8192",
+        cases=cases, identical=True)
 
 
 def check_bitonic(label: str, planes: torch.Tensor, num_keys: int) -> dict:
@@ -627,6 +663,8 @@ def check_bitonic(label: str, planes: torch.Tensor, num_keys: int) -> dict:
     geo = bitonic.tile_geometry(T, num_ops)
     say("bitonic_geometry", case=label, kernel="bitonic_tile_sort", tile=T, **geo,
         **bitonic.tile_sort_attrs(geo["R"]))
+    say("bitonic_geometry", case=label, kernel="bitonic_merge", tile=T, **geo,
+        **bitonic.merge_level_attrs(geo["R"]))
 
     crossed = bitonic.cross_stage(tiled.clone(), num_keys, T, 2 * T)
     want, plain_ms = once_ms(lambda: bitonic.cross_stage_plain(tiled, num_keys, T, 2 * T))
@@ -916,6 +954,7 @@ def main():
     # 3b (a): step 2's shape, 4 key words + payload (the radix stream
     # keeps ctx out of the comparator words)
     t0 = time.time()
+    check_radix_tiles()
     T = radix.DEFAULT_TILE_ROWS * radix.LANES
     planes = kmer_stream(4, -(-STEP2_ROWS // T) * T, SEED, True, 45)
     k4 = check_radix("step2_W4", planes, 4, 4)

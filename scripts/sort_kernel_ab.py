@@ -1,35 +1,39 @@
-"""K4c (region merge) and K3a (key-index tile sort) variants, checked and
-timed in one process on one GPU.
+"""K3a, K3b and K4a (the kernels on csrc/keyindex_net.cuh) checked and
+timed in one process on one GPU, optionally beside another checkout's.
 
-    python3 scripts/sort_kernel_ab.py [--rounds 2]
+    python3 scripts/sort_kernel_ab.py [--parent DIR ...] [--rounds 2]
 
-Prints each kernel variant's registers, spilled (local) bytes and static
-shared memory (cudaFuncGetAttributes); holds every variant bit for bit
-against its plain version on small streams (K3a at W = 2, 4, 13, 17, 40
-and tiles of 128..16384 rows, also with 90% of rows tied on their first
-word; K4c on K4b's slots, with and without the final gather) and at step
-2's and step 3's shapes (`chip_smoke.py`'s streams: 210.1M rows of 4 key
-words + payload for K4c, 2^28 rows for K3a; 4,599,661 K2 rows of 17 key
-words for K4c, 2^23 rows of 17 + payload for K3a); then times, at both
-shapes, K4c at P = 8 and 16 records a thread and K3a at R = 2, 4, 8 and 16
-rows a thread where the tile allows, in turns (a, b, ..., b, a), each a
-mean of CUDA-event times over --rounds turns, beside one stable
-torch.sort of the leading int64 key.  Exits non-zero on any mismatch.
+Prints each kernel's registers, spilled (local) bytes and static shared
+memory at R = 2, 4, 8, 16 rows a thread (cudaFuncGetAttributes); holds
+every R of each kernel bit for bit against its plain version on small
+tie-heavy streams (K3a and K3b at W = 1, 2, 4, 13, 17, 40 and tiles of
+128..16384 rows, K3b at levels 2T and 4T; K4a at cmp_keys 1-4 on odd
+tile counts of 128..8192 rows, with rows all ones in the comparator
+words; each also with 90% of rows tied on their first word); then, at
+step 2's and step 3's shapes (`chip_smoke.py`'s streams: K4a on 210.1M
+rows of 4 key words + payload and on 4,599,661 K2 rows of 17 key words;
+K3a and K3b on 2^28 rows of 4 key words + payload and 2^23 rows of 17 +
+payload, K3b at the first and at the last merge level as the sort feeds
+them: the last one's tiles hold runs of copies of one kmer, tied on
+every key word), checks every
+R the tile allows and times them in turns (a, b, ..., b, a), each a mean
+of CUDA-event times over --rounds turns, beside one stable torch.sort of
+the leading int64 key.  With --parent DIR ..., unpacked checkouts of
+other commits of the port (in a directory .gitignore lists), each
+commit's K3a, K3b and K4a are built from its DIR, checked against the
+same plain versions and timed in the same turns under the DIR's name.
+Exits non-zero on any mismatch.
 
-The port runs K4c at P = 8 and K3a at the R that `bitonic.tile_geometry`
-takes from the tile.  The other K3a variants are the kernel's own
-template instances, launched here through its C entry point with another
-R; the P = 16 K4c is compiled here from csrc/region_merge.cu with its P
-constant replaced, into a library of its own.
+The port runs each kernel at the R that `bitonic.tile_geometry` takes
+from the tile; the other R are the kernels' own template instances,
+launched here through their C entry points.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
+import importlib.util
 import os
-import shutil
-import subprocess
 import sys
 
 import torch
@@ -42,213 +46,244 @@ from w2rap_contigger_tpu_torch.ops import bitkmer as bk  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import _build, bitonic, radix  # noqa: E402
 
 STEP3_K2_ROWS = 4_599_661  # E. coli K=260 K2 rows (chip_smoke.py phase 6)
-P_LINE = "constexpr int P = 8;"
+RS = (2, 4, 8, 16)
 
 
-def load_k4c(P: int, out_dir: str):
-    """K4c with P records a thread, built from csrc/region_merge.cu."""
-    with open(os.path.join(_build._CSRC, "region_merge.cu")) as f:
-        src = f.read()
-    if src.count(P_LINE) != 1:
-        raise SystemExit(f"region_merge.cu no longer holds {P_LINE!r}")
-    cu = os.path.join(out_dir, f"region_merge_p{P}.cu")
-    so = os.path.join(out_dir, f"region_merge_p{P}.so")
-    with open(cu, "w") as f:
-        f.write(src.replace(P_LINE, f"constexpr int P = {P};"))
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build._CSRC, "-shared",
-                    "-o", so, cu], check=True)
-    lib = ctypes.CDLL(so)
-    for name in ("w2rap_radix_region_sort", "w2rap_radix_region_sort_attrs"):
-        getattr(lib, name).argtypes = _build._SIGNATURES[name]
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
 
 
-def k4c_attrs(lib) -> dict:
-    buf = (ctypes.c_int * 4)()
-    _build.check(lib.w2rap_radix_region_sort_attrs(buf), "K4c attrs")
-    return {"regs": buf[0], "local_bytes": buf[1], "static_smem": buf[2],
-            "max_threads": buf[3]}
+def load_parent(root: str):
+    """The kernel library of another checkout of the port, built by that
+    checkout's own ops/_build.py from its csrc/."""
+    path = os.path.join(root, "w2rap_contigger_tpu_torch", "ops", "_build.py")
+    spec = importlib.util.spec_from_file_location(f"build_{abs(hash(root))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.library()
 
 
-def k4c_with(P: int, libs: dict, recs, region: int, C: int, run: int, final=None):
-    """K4c at P records a thread: the port's wrapper at its own P, else
-    the variant library, launched as radix.region_sort launches it."""
-    if P == radix.MERGE_OUTPUTS:
-        return radix.region_sort(*recs, region, C, run, final=final)
-    m = radix.region_merge_geometry(C, run)["m"]
-    total = recs[0].shape[0]
-    if final:
-        planes, num_keys = final
-        out = torch.empty((planes.shape[0], total), dtype=torch.int32, device=planes.device)
-        dst = (None, None, None)
-        gather = (planes.data_ptr(), planes.shape[1], planes.shape[0], num_keys,
-                  out.data_ptr())
-    else:
-        out = tuple(torch.empty_like(r) for r in recs)
-        dst = tuple(r.data_ptr() for r in out)
-        gather = (None, 0, 0, 0, None)
-    err = libs[P].w2rap_radix_region_sort(
-        *(r.data_ptr() for r in recs), *dst, total, region, C, run, m, m // P,
-        int(bool(final)), *gather, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, f"K4c P={P}")
-    return out
+def _geometry(fn, n_plain: int, R: int, T: int, nplanes: int) -> tuple:
+    """(R, threads, bytes) where the entry point takes the network's
+    geometry, () for an older one with n_plain arguments, which does not."""
+    if len(fn.argtypes) == n_plain:
+        return ()
+    return (R, T // R, nplanes * T * 4 + 4 * T)
 
 
-def k3a_with(planes: torch.Tensor, W: int, T: int, R: int) -> torch.Tensor:
-    """K3a in place at R rows a thread, through the kernel's C entry point
-    (the port's wrapper takes R from bitonic.tile_geometry)."""
+def k3a(lib, planes: torch.Tensor, W: int, T: int, R: int) -> torch.Tensor:
+    """K3a in place at R rows a thread through lib's C entry point."""
     num_ops, n = planes.shape
-    smem = num_ops * T * 4 + 4 * T
-    err = _build.library().w2rap_bitonic_tile_sort(
-        planes.data_ptr(), n, num_ops, W, T, R, T // R, smem,
-        torch.cuda.current_stream().cuda_stream)
+    err = lib.w2rap_bitonic_tile_sort(planes.data_ptr(), n, num_ops, W, T, R, T // R,
+                                      num_ops * T * 4 + 4 * T, _stream())
     _build.check(err, f"K3a R={R}")
     return planes
 
 
-def k3a_variants(T: int, num_ops: int) -> list[int]:
-    """The R a T-row tile of num_ops planes can run at."""
-    fits = num_ops * T * 4 + 4 * T <= bitonic.SMEM_MAX_BYTES
-    return [R for R in (2, 4, 8, 16) if fits and 32 <= T // R <= bitonic.TILE_THREADS]
+def k3b(lib, planes: torch.Tensor, W: int, T: int, size: int, R: int) -> torch.Tensor:
+    """K3b (merge level `size`) in place at R rows a thread (an older
+    library's K3b takes no geometry)."""
+    num_ops, n = planes.shape
+    fn = lib.w2rap_bitonic_merge
+    err = fn(planes.data_ptr(), n, num_ops, W, T, size,
+             *_geometry(fn, 7, R, T, num_ops), _stream())
+    _build.check(err, f"K3b R={R}")
+    return planes
 
 
-def check_k3a_small() -> None:
+def k4a(lib, planes: torch.Tensor, cmp_keys: int, T: int, R: int):
+    """K4a's records at R rows a thread (an older library's K4a takes no
+    geometry)."""
+    n = planes.shape[1]
+    out = (torch.empty(n, dtype=torch.int64, device=planes.device),
+           torch.empty(n, dtype=torch.int64, device=planes.device),
+           torch.empty(n, dtype=torch.int32, device=planes.device))
+    fn = lib.w2rap_radix_tile_sort
+    err = fn(planes.data_ptr(), n, cmp_keys, T, *_geometry(fn, 8, R, T, cmp_keys),
+             *(o.data_ptr() for o in out), _stream())
+    _build.check(err, f"K4a R={R}")
+    return out
+
+
+def variants(T: int, nplanes: int) -> list[int]:
+    """The R a T-row tile of nplanes planes can run at."""
+    fits = nplanes * T * 4 + 4 * T <= bitonic.SMEM_MAX_BYTES
+    return [R for R in RS if fits and 32 <= T // R <= bitonic.TILE_THREADS]
+
+
+def same(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_small(lib) -> None:
+    cases = 0
     for W in (1, 2, 4, 13, 17, 40):
         T = 128
         while T <= 16384:
-            for R in k3a_variants(T, W + 1):
+            for R in variants(T, W + 1):
                 for tie_first in (0.0, 0.9):
                     planes = cs.tie_stream(W, 4 * T, W * T + R, tie_first)
-                    got = k3a_with(planes.clone(), W, T, R)
-                    want = bitonic.tile_sort_plain(planes, W, T)
-                    if not torch.equal(got, want):
+                    if not same(k3a(lib, planes.clone(), W, T, R),
+                                bitonic.tile_sort_plain(planes, W, T)):
                         cs.fail(f"K3a W={W} T={T} R={R} tie_first={tie_first} differs")
+                    for size in (2 * T, 4 * T):
+                        if not same(k3b(lib, planes.clone(), W, T, size, R),
+                                    bitonic.merge_level_plain(planes, W, T, size)):
+                            cs.fail(f"K3b W={W} T={T} R={R} size={size} "
+                                    f"tie_first={tie_first} differs")
+                    cases += 1
             T *= 2
-    cs.say("k3a_small", identical=True)
+    for cmp_keys in (1, 2, 3, 4):
+        for T, tiles in ((128, 5), (1024, 3), (2048, 3), (4096, 3), (8192, 3)):
+            for R in variants(T, cmp_keys):
+                for tie_first in (0.0, 0.9):
+                    planes = cs.tie_stream(5, T * tiles, 7 * T + cmp_keys, tie_first)
+                    planes[:cmp_keys, 3::19] = -1  # all ones in the comparator words only
+                    if not same(k4a(lib, planes, cmp_keys, T, R),
+                                radix.tile_sort_plain(planes, cmp_keys, T)):
+                        cs.fail(f"K4a cmp_keys={cmp_keys} T={T} R={R} "
+                                f"tie_first={tie_first} differs")
+                    cases += 1
+    cs.say("small", kernels="K3a,K3b,K4a", cases=cases, identical=True)
 
 
-def k4c_inputs(planes: torch.Tensor, num_keys: int, cmp_keys: int):
-    T, n_tiles, n_bins, cap, region = radix.geometry(planes.shape[1])
-    s = radix.tile_sort(planes, cmp_keys, T)
-    sp = radix.splitters(s[0], s[1], T, n_bins)
-    *recs, _ = radix.partition(planes, *s, *sp, num_keys, cmp_keys, T, n_bins, cap)
-    C = min(T, region)
-    return recs, region, C, min(cap, C)
-
-
-def check_k4c(label: str, planes: torch.Tensor, num_keys: int, cmp_keys: int, libs: dict):
-    recs, region, C, run = k4c_inputs(planes, num_keys, cmp_keys)
-    want = radix.region_sort_plain(*recs, region, C)
-    want_final = radix.gather_plain(want[2], planes, num_keys)
-    for P in (8, 16):
-        got = k4c_with(P, libs, recs, region, C, run)
-        fin = k4c_with(P, libs, recs, region, C, run, final=(planes, num_keys))
-        if not all(torch.equal(a, b) for a, b in zip(got, want)) or not torch.equal(fin, want_final):
-            cs.fail(f"K4c {label} P={P} differs from its plain version")
-        del got, fin
-    del want, want_final
-    torch.cuda.empty_cache()
-    g = radix.region_merge_geometry(C, run)
-    cs.say("k4c_check", case=label, rows=planes.shape[1], region=region, C=C, run=run,
-           levels=g["levels"], identical=True)
-    return recs, region, C, run
+def event_ms(kernel, setup=None):
+    """A function that runs setup(), then kernel() between CUDA events,
+    and returns the kernel's ms."""
+    def run():
+        if setup is not None:
+            setup()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        kernel()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1)
+    return run
 
 
 def turns(fns: dict, rounds: int) -> dict:
-    """Mean ms of each fn over rounds turns of (a, b, ..., b, a)."""
+    """Mean ms of each fn over rounds turns of (a, b, ..., b, a), after one
+    warm-up call each."""
     names = list(fns)
-    acc = {k: [] for k in names}
     for fn in fns.values():
         fn()
-    torch.cuda.synchronize()
+    acc = {k: [] for k in names}
     for _ in range(rounds):
         for k in names + names[::-1]:
-            acc[k].append(cs.time_ms(fns[k], reps=1))
+            acc[k].append(fns[k]())
     return {k: sum(v) / len(v) for k, v in acc.items()}
 
 
-def time_k4c(label: str, recs, region, C, run, key, rounds: int, libs: dict) -> None:
-    fns = {f"P{P}": (lambda P=P: k4c_with(P, libs, recs, region, C, run)) for P in (8, 16)}
-    fns["torch_sort"] = lambda: torch.sort(key, stable=True)
-    for k, ms in turns(fns, rounds).items():
-        cs.say("k4c_time", case=label, variant=k, ms=f"{ms:.4f}")
+def label_of(name: str, R: int) -> str:
+    """A variant's name: this checkout's kernel at R, or another
+    checkout's at the R its own wrapper takes."""
+    return f"new_R{R}" if name == "new" else name
 
 
-def time_k3a(label: str, planes: torch.Tensor, W: int, key, rounds: int) -> None:
-    T = bitonic.tile_rows_of(planes.shape[0], planes.shape[1])
-    buf = planes.clone()
-    want = bitonic.tile_sort_plain(planes, W, T)
+def time_k4a(label: str, planes, cmp_keys: int, key, libs: dict, rounds: int) -> None:
+    T = radix.DEFAULT_TILE_ROWS * radix.LANES
+    R0 = bitonic.tile_geometry(T, cmp_keys)["R"]
+    want = radix.tile_sort_plain(planes, cmp_keys, T)
     fns = {}
-    for R in k3a_variants(T, planes.shape[0]):
-        buf.copy_(planes)
-        if not torch.equal(k3a_with(buf, W, T, R), want):
-            cs.fail(f"K3a {label} R={R} differs from its plain version")
-
-        def run(R=R):
-            buf.copy_(planes)
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            k3a_with(buf, W, T, R)
-            t1.record()
-            return t0, t1
-        fns[f"R{R}"] = run
+    for name, lib in libs.items():
+        for R in variants(T, cmp_keys) if name == "new" else [R0]:
+            if not same(k4a(lib, planes, cmp_keys, T, R), want):
+                cs.fail(f"K4a {label} {name} R={R} differs from its plain version")
+            fns[label_of(name, R)] = event_ms(
+                lambda lib=lib, R=R: k4a(lib, planes, cmp_keys, T, R))
     del want
     torch.cuda.empty_cache()
-    names = list(fns)
-    acc = {k: [] for k in names}
-    for _ in range(rounds + 1):
-        for k in names + names[::-1]:
-            t0, t1 = fns[k]()
-            torch.cuda.synchronize()
-            acc[k].append(t0.elapsed_time(t1))
-    for k in names:
-        v = acc[k][2:]  # the first turn warms up
-        cs.say("k3a_time", case=label, tile=T, variant=k, ms=f"{sum(v) / len(v):.4f}")
-    lib = turns({"torch_sort": lambda: torch.sort(key, stable=True)}, rounds)["torch_sort"]
-    cs.say("k3a_time", case=label, tile=T, variant="torch_sort", ms=f"{lib:.4f}")
+    fns["torch_sort"] = event_ms(lambda: torch.sort(key, stable=True))
+    for k, ms in turns(fns, rounds).items():
+        cs.say("k4a_time", case=label, tile=T, variant=k, ms=f"{ms:.4f}")
+
+
+def merge_input(planes, W: int, T: int, size: int) -> torch.Tensor:
+    """A copy of planes sorted by the network up to the merge of level
+    size: what K3b at that level takes."""
+    out = planes.clone()
+    for kind, x, sz in bitonic.phases(planes.shape[1], T):
+        if kind == "merge" and sz == size:
+            return out
+        if kind == "tile":
+            bitonic.tile_sort(out, W, T)
+        elif kind == "cross":
+            bitonic.cross_stage(out, W, x, sz)
+        else:
+            bitonic.merge_level(out, W, T, sz)
+    raise ValueError(f"no merge level {size}")
+
+
+def time_k3(label: str, planes, W: int, key, libs: dict, rounds: int) -> None:
+    """K3a on the stream and K3b on its first and its last merge level's
+    input, every variant checked."""
+    n = planes.shape[1]
+    T = bitonic.tile_rows_of(planes.shape[0], n)
+    R0 = bitonic.tile_geometry(T, planes.shape[0])["R"]
+    rs = variants(T, planes.shape[0])
+    first = merge_input(planes, W, T, 2 * T)
+    last = merge_input(planes, W, T, n)
+    buf = torch.empty_like(planes)
+    fns = {}
+    for kernel, src, plain, call in (
+            ("k3a", planes, lambda: bitonic.tile_sort_plain(planes, W, T),
+             lambda lib, R: k3a(lib, buf, W, T, R)),
+            ("k3b_first", first, lambda: bitonic.merge_level_plain(first, W, T, 2 * T),
+             lambda lib, R: k3b(lib, buf, W, T, 2 * T, R)),
+            ("k3b_last", last, lambda: bitonic.merge_level_plain(last, W, T, n),
+             lambda lib, R: k3b(lib, buf, W, T, n, R))):
+        want = plain()
+        for name, lib in libs.items():
+            for R in rs if name == "new" else [R0]:
+                buf.copy_(src)
+                if not same(call(lib, R), want):
+                    cs.fail(f"{kernel} {label} {name} R={R} differs from its plain version")
+                fns[f"{kernel}_{label_of(name, R)}"] = event_ms(
+                    lambda lib=lib, R=R, call=call: call(lib, R),
+                    setup=lambda src=src: buf.copy_(src))
+        del want
+        torch.cuda.empty_cache()
+    fns["torch_sort"] = event_ms(lambda: torch.sort(key, stable=True))
+    for k, ms in turns(fns, rounds).items():
+        cs.say("k3_time", case=label, tile=T, variant=k, ms=f"{ms:.4f}")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", nargs="*", default=[],
+                    help="unpacked checkouts of other commits of the port")
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
     card = cs.phase_probe()
     cs.phase_build()
-    out_dir = os.path.join(_build.BUILD_DIR, f"ab.{os.getpid()}")
-    os.makedirs(out_dir)
-    try:
-        libs = {16: load_k4c(16, out_dir)}
-        cs.say("attrs", kernel="radix_region_sort", P=8, **radix.region_sort_attrs())
-        cs.say("attrs", kernel="radix_region_sort", P=16, **k4c_attrs(libs[16]))
-        for R in (2, 4, 8, 16):
-            cs.say("attrs", kernel="bitonic_tile_sort", R=R, **bitonic.tile_sort_attrs(R))
-        check_k3a_small()
-        small = cs.kmer_stream(5, 8 * 8192, cs.SEED + 5, True, 3)
-        check_k4c("small_W5", small, 5, 4, libs)
-        del small
+    lib = _build.library()
+    libs = {"new": lib, **{os.path.basename(os.path.normpath(d)): load_parent(d)
+                           for d in args.parent}}
+    for R in RS:
+        cs.say("attrs", kernel="bitonic_tile_sort", R=R, **bitonic.tile_sort_attrs(R))
+        cs.say("attrs", kernel="bitonic_merge", R=R, **bitonic.merge_level_attrs(R))
+        cs.say("attrs", kernel="radix_tile_sort", R=R, **radix.tile_sort_attrs(R))
+    check_small(lib)
 
-        T = radix.DEFAULT_TILE_ROWS * radix.LANES
-        for label, W, rows, payload, copies in (("step2_W4", 4, cs.STEP2_ROWS, True, 45),
-                                                ("step3_W17", 17, STEP3_K2_ROWS, False, 2)):
-            planes = cs.kmer_stream(W, -(-rows // T) * T, cs.SEED + W, payload, copies)
-            recs, region, C, run = check_k4c(label, planes, W, 4, libs)
-            key = bk.pair_key(bk.from_raw32(planes[0]), bk.from_raw32(planes[1]))
-            del planes
-            torch.cuda.empty_cache()
-            time_k4c(label, recs, region, C, run, key, args.rounds, libs)
-            del recs, key
-            torch.cuda.empty_cache()
+    T = radix.DEFAULT_TILE_ROWS * radix.LANES
+    for label, W, rows, payload, copies in (("step2_W4", 4, cs.STEP2_ROWS, True, 45),
+                                            ("step3_W17", 17, STEP3_K2_ROWS, False, 2)):
+        planes = cs.kmer_stream(W, -(-rows // T) * T, cs.SEED + W, payload, copies)
+        key = bk.pair_key(bk.from_raw32(planes[0]), bk.from_raw32(planes[1]))
+        time_k4a(label, planes, 4, key, libs, args.rounds)
+        del planes, key
+        torch.cuda.empty_cache()
 
-        for label, W, n in (("step2_W4", 4, cs.STEP2_POW2), ("step3_W17", 17, 1 << 23)):
-            planes = cs.kmer_stream(W, n, cs.SEED + 3 + W, True, 45 if W == 4 else 2)
-            key = bk.pair_key(bk.from_raw32(planes[0]), bk.from_raw32(planes[1]))
-            time_k3a(label, planes, W, key, args.rounds)
-            del planes, key
-            torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(out_dir)
+    for label, W, n in (("step2_W4", 4, cs.STEP2_POW2), ("step3_W17", 17, 1 << 23)):
+        planes = cs.kmer_stream(W, n, cs.SEED + 3 + W, True, 45 if W == 4 else 2)
+        key = bk.pair_key(bk.from_raw32(planes[0]), bk.from_raw32(planes[1]))
+        time_k3(label, planes, W, key, libs, args.rounds)
+        del planes, key
+        torch.cuda.empty_cache()
     print(card, flush=True)
 
 

@@ -1,10 +1,10 @@
 """K3 bitonic sort: the port's bitonic_sort (plain version, CPU) against
 the JAX package's Pallas kernels in interpret mode, bit for bit with the
 payload = row index, over tiles that differ between the two; each phase
-against a numpy transcription of the network; a numpy model of K3a's
-key-index schedule (csrc/bitonic_tile.cu) against the plain tile sort;
-and, on a card, every kernel against its plain version.  Tolerance:
-exact equality."""
+against a numpy transcription of the network; a numpy model of the
+key-index schedule (csrc/keyindex_net.cuh) of K3a against the plain tile
+sort and of K3b against the plain merge level; and, on a card, every
+kernel against its plain version.  Tolerance: exact equality."""
 
 import numpy as np
 import pytest
@@ -111,81 +111,112 @@ def test_phases_match_the_numpy_network(rng):
         np.testing.assert_array_equal(_np(x), want)
 
 
-def _key_index_model(planes, num_keys, T):
-    """K3a as bitonic_tile.cu computes it, in numpy, every thread of a
-    block at once: thread t holds positions t*R .. t*R + R-1 as (row
-    index, first key word); strides >= 32R exchange indices through
-    shared memory and re-read the first word from the tile, strides
-    R..16R exchange both between lanes of a warp, strides < R stay in the
+def _key_index_net(tile, nwords, R, g0, levels, by_row=False):
+    """The network of keyindex_net.cuh on one tile, in numpy, every thread
+    of a block at once: thread t holds positions t*R .. t*R + R-1 as (tile
+    row, first word); strides >= 32R exchange indices through shared
+    memory and re-read the first word from the tile, strides R..16R
+    exchange both between lanes of a warp, strides < R stay in the
     thread; a tie on the first word reads the later words through the
-    indices, unless both rows carry the sentinel flag set at the load;
-    the planes are stored once through the final indices."""
+    indices, unless both rows carry the flag set at the load (all ones
+    in the nwords words), which makes them equal, or with by_row (K4a)
+    orders them by tile row, as it orders rows equal on every word.
+    tile: (>= nwords, T) u32, read-only; g0: (threads,) the position
+    whose bits give the direction of each thread's r = 0; levels: (size,
+    first stride) in order.  Returns the final tile rows (threads, R) and
+    the stages by kind."""
+    T = tile.shape[1]
+    threads = T // R
+    assert threads % 32 == 0 and threads <= 1024
+    t = np.arange(threads)
+    ix = t[:, None] * R + np.arange(R)
+    key = tile[0][ix]
+    sent = (tile[:nwords] == FULL).all(axis=0)
+    stages = {"smem": 0, "shfl": 0, "reg": 0}
+
+    def swaps(ka, ia, kb, ib, desc):
+        gt = ka > kb
+        both = sent[ia] & sent[ib]
+        tied = (ka == kb) & ~both
+        for j in range(1, nwords):
+            x, y = tile[j][ia], tile[j][ib]
+            gt = np.where(tied & (x != y), x > y, gt)
+            tied &= x == y
+        if by_row:
+            gt = np.where((ka == kb) & (tied | both), ia > ib, gt)
+        return gt != desc
+
+    def exchange(pk, pi, m, size):
+        upper = ((t & m) != 0)[:, None]
+        desc = ((g0[:, None] + np.arange(R)) & size) != 0
+        assert (desc == desc[:, :1]).all()  # the kernel takes it once a stage
+        sw = np.where(upper, swaps(pk, pi, key, ix, desc), swaps(key, ix, pk, pi, desc))
+        return np.where(sw, pk, key), np.where(sw, pi, ix)
+
+    for size, stride in levels:
+        while stride >= 32 * R:
+            m = stride // R
+            pi = ix[t ^ m]  # the partner thread's indices
+            key, ix = exchange(tile[0][pi], pi, m, size)
+            stages["smem"] += 1
+            stride //= 2
+        while stride >= R:
+            m = stride // R
+            assert ((t ^ m) // 32 == t // 32).all()  # a lane of the same warp
+            key, ix = exchange(key[t ^ m], ix[t ^ m], m, size)
+            stages["shfl"] += 1
+            stride //= 2
+        s = R // 2
+        while s > 0:
+            if s <= stride:
+                for r in range(R):
+                    if r & s:
+                        continue
+                    desc = ((g0 + r) & size) != 0
+                    sw = swaps(key[:, r], ix[:, r], key[:, r + s], ix[:, r + s], desc)
+                    for a in (key, ix):
+                        a[:, r], a[:, r + s] = (np.where(sw, a[:, r + s], a[:, r]),
+                                                np.where(sw, a[:, r], a[:, r + s]))
+                stages["reg"] += 1
+            s //= 2
+    assert np.array_equal(key, tile[0][ix])
+    assert np.array_equal(np.sort(ix.reshape(-1)), np.arange(T))
+    return ix, stages
+
+
+def _key_index_model(planes, num_keys, T, size=None):
+    """K3a (size None: levels 2..T) or K3b (the one merge level size > T:
+    strides T/2..1) as the kernels compute them: the network on every
+    tile, the direction from the global row, the planes stored once
+    through the final indices.  Returns the planes and the stages a
+    tile."""
     num_ops, n = planes.shape
     g = bitonic.tile_geometry(T, num_ops)
-    R, threads = g["R"], g["threads"]
-    assert threads * R == T and threads % 32 == 0
+    R = g["R"]
+    assert g["threads"] * R == T
+    if size is None:
+        levels = [(lv, lv // 2) for lv in _levels(2, T)]
+    else:
+        assert size > T
+        levels = [(size, T // 2)]
     out = planes.copy()
-    t = np.arange(threads)
-    stages = {"smem": 0, "shfl": 0, "reg": 0}
     for base in range(0, n, T):
-        tile = planes[:, base:base + T]  # read-only
-        ix = t[:, None] * R + np.arange(R)
-        key = tile[0][ix]
-        g0 = base + t * R
-
-        sent = (tile[:num_keys] == FULL).all(axis=0)
-
-        def swaps(ka, ia, kb, ib, desc):
-            gt = ka > kb
-            tied = (ka == kb) & ~(sent[ia] & sent[ib])
-            for j in range(1, num_keys):
-                x, y = tile[j][ia], tile[j][ib]
-                gt = np.where(tied & (x != y), x > y, gt)
-                tied &= x == y
-            return gt != desc
-
-        def exchange(pk, pi, m, size):
-            upper = ((t & m) != 0)[:, None]
-            desc = ((g0[:, None] + np.arange(R)) & size) != 0
-            assert (desc == desc[:, :1]).all()  # the kernel takes it once a stage
-            sw = np.where(upper, swaps(pk, pi, key, ix, desc), swaps(key, ix, pk, pi, desc))
-            return np.where(sw, pk, key), np.where(sw, pi, ix)
-
-        size = 2
-        while size <= T:
-            stride = size // 2
-            while stride >= 32 * R:
-                m = stride // R
-                pi = ix[t ^ m]  # the partner thread's indices
-                key, ix = exchange(tile[0][pi], pi, m, size)
-                stages["smem"] += 1
-                stride //= 2
-            while stride >= R:
-                m = stride // R
-                assert ((t ^ m) // 32 == t // 32).all()  # a lane of the same warp
-                key, ix = exchange(key[t ^ m], ix[t ^ m], m, size)
-                stages["shfl"] += 1
-                stride //= 2
-            s = R // 2
-            while s > 0:
-                if s <= stride:
-                    for r in range(R):
-                        if r & s:
-                            continue
-                        desc = ((g0 + r) & size) != 0
-                        sw = swaps(key[:, r], ix[:, r], key[:, r + s], ix[:, r + s], desc)
-                        for a in (key, ix):
-                            a[:, r], a[:, r + s] = (np.where(sw, a[:, r + s], a[:, r]),
-                                                    np.where(sw, a[:, r], a[:, r + s]))
-                    stages["reg"] += 1
-                s //= 2
-            size *= 2
-        assert np.array_equal(key, tile[0][ix])
-        assert np.array_equal(np.sort(ix.reshape(-1)), np.arange(T))
+        tile = planes[:, base:base + T]
+        g0 = base + np.arange(T // R) * R
+        ix, stages = _key_index_net(tile, num_keys, R, g0, levels)
         out[:, base:base + T] = tile[:, ix.reshape(-1)]
     lt = T.bit_length() - 1
-    assert sum(stages.values()) == n // T * lt * (lt + 1) // 2
-    return out, {k: v // (n // T) for k, v in stages.items()}
+    assert sum(stages.values()) == (lt * (lt + 1) // 2 if size is None else lt)
+    return out, stages
+
+
+def _tie_planes(rng, n, num_keys, tie_first):
+    """Tie-heavy rows (8 key values, 10% sentinels), with 90% of rows
+    sharing their first word when tie_first."""
+    planes = _planes(rng, n, num_keys)
+    if tie_first:
+        planes[0, rng.random(n) < 0.9] = 0x80000000
+    return planes
 
 
 # (key words, tile T, tiles): R = 2 at T <= 2048, 4 at 4096, 8 at 8192,
@@ -198,14 +229,36 @@ def test_key_index_model_matches_plain(rng, num_keys, T, tiles):
     """On tie-heavy rows (8 key values, 10% sentinels) and on rows of which
     90% share their first word."""
     for tie_first in (False, True):
-        planes = _planes(rng, T * tiles, num_keys)
-        if tie_first:
-            planes[0, rng.random(T * tiles) < 0.9] = 0x80000000
+        planes = _tie_planes(rng, T * tiles, num_keys, tie_first)
         got, stages = _key_index_model(planes, num_keys, T)
         np.testing.assert_array_equal(got, _np(bitonic.tile_sort_plain(_torch(planes), num_keys, T)))
     # the kernel's barriers: one a stage with a stride >= 32R
     if (num_keys, T) == (4, 8192):
         assert stages == {"smem": 15, "shfl": 40, "reg": 36}
+
+
+# (key words, tile T): R = 2 at T = 128 and 2048, 8 at 8192 (where 17
+# key words + payload do not fit one block)
+MERGE_MODEL_CASES = [(1, 128), (4, 128), (17, 128), (1, 2048), (4, 2048), (17, 2048),
+                     (1, 8192), (4, 8192)]
+
+
+@pytest.mark.parametrize("num_keys,T", MERGE_MODEL_CASES)
+def test_key_index_merge_model_matches_plain(rng, num_keys, T):
+    """K3b's schedule against merge_level_plain on four tiles, at level 2T
+    (the direction bit set in tiles 2 and 3) and 4T (set in none), on
+    tie-heavy rows and on rows 90% tied on their first word."""
+    for tie_first in (False, True):
+        planes = _tie_planes(rng, 4 * T, num_keys, tie_first)
+        for size in (2 * T, 4 * T):
+            got, stages = _key_index_model(planes, num_keys, T, size)
+            want = bitonic.merge_level_plain(_torch(planes), num_keys, T, size)
+            np.testing.assert_array_equal(got, _np(want))
+    lt = T.bit_length() - 1
+    R = bitonic.tile_geometry(T, num_keys + 1)["R"]
+    assert stages["reg"] == R.bit_length() - 1 and sum(stages.values()) == lt
+    if T == 8192:  # 5 barriers, where the old kernel had one a stride
+        assert stages == {"smem": 5, "shfl": 5, "reg": 3}
 
 
 def test_checks_and_tiles():
@@ -260,8 +313,8 @@ def test_bitonic_kernels_match_plain(rng):
         assert torch.equal(got, bitonic.bitonic_sort_plain(planes, num_keys, tile_rows))
         for name in ("bitonic_tile_sort", "bitonic_cross_stage", "bitonic_merge"):
             assert tdev.LAUNCHES[name] > before[name]
-    # K3a alone at every width the CLI reaches and every tile that fits,
-    # on tie-heavy rows and on rows 90% tied on their first word
+    # K3a and K3b alone at every width the CLI reaches and every tile that
+    # fits, on tie-heavy rows and on rows 90% tied on their first word
     for num_keys in (2, 4, 13, 17, 40):
         for T in (128 << i for i in range(7)):
             try:
@@ -269,9 +322,9 @@ def test_bitonic_kernels_match_plain(rng):
             except ValueError:
                 break
             for tie_first in (False, True):
-                planes = _planes(rng, 4 * T, num_keys)
-                if tie_first:
-                    planes[0, rng.random(4 * T) < 0.9] = 0x80000000
-                planes = _torch(planes).cuda()
+                planes = _torch(_tie_planes(rng, 4 * T, num_keys, tie_first)).cuda()
                 assert torch.equal(bitonic.tile_sort(planes.clone(), num_keys, T),
                                    bitonic.tile_sort_plain(planes, num_keys, T))
+                for size in (2 * T, 4 * T):
+                    assert torch.equal(bitonic.merge_level(planes.clone(), num_keys, T, size),
+                                       bitonic.merge_level_plain(planes, num_keys, T, size))

@@ -3,10 +3,11 @@ Pallas kernels in interpret mode, at the JAX tests' tile_rows and n_bins
 (tests/test_pallas_radix.py): splitters, overflow flag, each region's
 count of valid rows and each region's rows (lexsorted by all planes, as
 only the order of rows tied on the comparator words may differ); the
-collision flag; the plain phases composed one by one; a numpy model of
-K4c's merge path (csrc/region_merge.cu) against the plain chunk sort;
-and, on a card, every kernel against its plain version.  Tolerance:
-exact equality."""
+collision flag; the plain phases composed one by one; numpy models of
+K4a's key-index network (csrc/radix.cu on csrc/keyindex_net.cuh) against
+the plain tile sort and of K4c's merge path (csrc/region_merge.cu)
+against the plain chunk sort; and, on a card, every kernel against its
+plain version.  Tolerance: exact equality."""
 
 import numpy as np
 import pytest
@@ -17,7 +18,8 @@ import jax.numpy as jnp
 
 from w2rap_contigger_tpu.ops import pallas_radix as prad
 from w2rap_contigger_tpu_torch import device as tdev
-from w2rap_contigger_tpu_torch.ops import radix
+from w2rap_contigger_tpu_torch.ops import bitonic, radix
+from test_torch_bitonic import _key_index_net, _levels
 
 FULL = np.uint32(0xFFFFFFFF)
 
@@ -161,6 +163,68 @@ def test_phases_compose_to_the_plain_sort(rng):
     out = radix.gather_plain(recs[2], planes, w)
     want, want_over = radix.partition_sort_plain(planes, w, 4, 16, 4)
     assert torch.equal(out, want) and torch.equal(over, want_over)
+
+
+def _k4a_model(planes, cmp_keys, T):
+    """K4a as csrc/radix.cu computes it, in numpy: the key-index network
+    on every tile's first cmp_keys words, the direction taken from the
+    tile row (so every tile ends ascending), ties on the first word
+    broken by the later words and then by the tile row (two rows all
+    ones in the compared words at once), and each record written through
+    the final rows: hi = w0 << 32 | w1, lo = w2 << 32 | w3 (missing words
+    0), idx = the input row."""
+    n = planes.shape[1]
+    R = bitonic.tile_geometry(T, cmp_keys)["R"]
+    words = np.zeros((4, n), dtype=np.uint64)
+    words[:cmp_keys] = planes[:cmp_keys]
+    rows = np.empty(n, dtype=np.int64)
+    levels = [(lv, lv // 2) for lv in _levels(2, T)]
+    for base in range(0, n, T):
+        ix, _ = _key_index_net(planes[:cmp_keys, base:base + T], cmp_keys, R,
+                               np.arange(T // R) * R, levels, by_row=True)
+        rows[base:base + T] = base + ix.reshape(-1)
+    hi = (words[0][rows] << np.uint64(32)) | words[1][rows]
+    lo = (words[2][rows] << np.uint64(32)) | words[3][rows]
+    return hi, lo, rows.astype(np.uint32)
+
+
+def _tie_rows(rng, n, w, cmp_keys, tie_first):
+    """(w+1, n) u32: key words from 8 values (half >= 2^31), 10% sentinel
+    rows, 5% of rows all ones in their first cmp_keys words only (real
+    rows that tie with sentinels there), 90% of rows sharing their first
+    word when tie_first; payload the row index."""
+    vals = np.array([0, 1, 5, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xFFFFFFFE, FULL],
+                    dtype=np.uint32)
+    keys = vals[rng.integers(0, len(vals), size=(w, n))]
+    if tie_first:
+        keys[0, rng.random(n) < 0.9] = 0x80000000
+    keys[:cmp_keys, rng.random(n) < 0.05] = FULL
+    keys[:, rng.random(n) < 0.1] = FULL
+    return np.concatenate([keys, np.arange(n, dtype=np.uint32)[None]])
+
+
+# (cmp_keys, tile T, tiles): R = 2 at T = 128 and 2048, 8 at 8192; odd
+# tile counts, whose odd tiles a global-row direction would sort
+# descending
+K4A_CASES = [(1, 128, 5), (2, 2048, 3), (3, 128, 3), (4, 8192, 3), (4, 2048, 5)]
+
+
+@pytest.mark.parametrize("cmp_keys,T,tiles", K4A_CASES)
+def test_k4a_model_matches_plain(rng, cmp_keys, T, tiles):
+    """On tie-heavy rows of 5 key words and on rows 90% tied on their
+    first word, with rows all ones in the comparator words."""
+    for tie_first in (False, True):
+        planes = _tie_rows(rng, T * tiles, 5, cmp_keys, tie_first)
+        want = radix.tile_sort_plain(torch.from_numpy(planes.view(np.int32)), cmp_keys, T)
+        got = _k4a_model(planes, cmp_keys, T)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w.numpy().view(g.dtype))
+        # the rows all ones in the comparator words end each tile, in row order
+        full = (planes[:cmp_keys] == FULL).all(axis=0)
+        for base in range(0, T * tiles, T):
+            nf = int(full[base:base + T].sum())
+            tail = got[2][base + T - nf:base + T]
+            assert full[tail].all() and (np.diff(tail.astype(np.int64)) > 0).all()
 
 
 MAX64 = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -368,6 +432,14 @@ def test_radix_kernels_match_plain(rng):
         for name in ("radix_tile_sort", "radix_partition", "radix_region_sort",
                      "radix_merge_pass"):
             assert tdev.LAUNCHES[name] > before[name]
+    # K4a alone at cmp_keys 1-4 on odd tile counts of tie-heavy rows
+    for cmp_keys, T, tiles in K4A_CASES:
+        for tie_first in (False, True):
+            planes = _tie_rows(rng, T * tiles, 5, cmp_keys, tie_first)
+            planes = torch.from_numpy(planes.view(np.int32)).cuda()
+            got = radix.tile_sort(planes, cmp_keys, T)
+            want = radix.tile_sort_plain(planes, cmp_keys, T)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
     # K4c alone on K4b's slots (8 runs a chunk; 3 runs padded to 4; a
     # short last chunk; one bin), as records and with the final gather
     for n, w, tile_rows, n_bins in MERGE_CASES.values():

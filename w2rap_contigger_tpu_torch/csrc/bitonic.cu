@@ -4,14 +4,14 @@
 // launched by _sort_planes (:206-255):
 //
 //   K3a _tile_sort_kernel (:140, launched :220)
-//       -> bitonic_tile.cu: one block runs levels 2..T of the network on
-//          one tile of T rows as a key-index network;
+//       -> bitonic_tile.cu: levels 2..T of the network on one tile;
 //   XLA _cross_stage (:183, called :249)
 //       -> cross_stage_kernel: one compare-exchange pass at a stride >= T,
 //          one thread per pair;
 //   K3b _tile_merge_kernel (:163, launched :236, once per level :252)
-//       -> merge_kernel: strides T/2..1 of one merge level on one tile in
-//          shared memory.
+//       -> key_index_merge_kernel: strides T/2..1 of one merge level on
+//          one tile (5 of 13 stages through shared memory at T = 8192).
+//   K3a and K3b are the key-index network of keyindex_net.cuh.
 //
 // The network is the canonical one, so its output does not depend on T:
 // for size = 2, 4, ..., n and stride s = size/2, ..., 1, the pair (i, i+s)
@@ -31,81 +31,36 @@
 // Bound on this card: device memory.  A tile pass or a cross pass reads and
 // writes every plane once (a cross pass writes only swapped pairs); the
 // sort is 1 tile pass, log2(n/T) merge passes and log2(n/T) (log2(n/T) +
-// 1) / 2 cross passes.  merge_kernel runs the log2(T) in-tile stages of a
-// merge level in shared memory, moving whole rows (T as large as 160 KB
-// of rows allows); fusing several cross strides into one pass is the
+// 1) / 2 cross passes; fusing several cross strides into one pass is the
 // next step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "keyindex_net.cuh"
+
 namespace {
 
-constexpr int TILE_THREADS = 1024;
 constexpr int CROSS_THREADS = 256;
 constexpr int SWAP_BATCH = 4;  // planes a cross-pass thread swaps at once
 constexpr int CROSS_MIN_BLOCKS = 8;  // caps the cross pass at 32 registers
 
-// true iff row a > row b on the first num_keys words of a tile in shared
-// memory (plane j of the tile at s[j * T])
-__device__ __forceinline__ bool greater_smem(const uint32_t* s, int T,
-                                             int num_keys, int a, int b) {
-  for (int j = 0; j < num_keys; ++j) {
-    const uint32_t x = s[j * T + a], y = s[j * T + b];
-    if (x != y) return x > y;
-  }
-  return false;
-}
-
-// strides stride0, stride0/2, ..., 1 of level `size` on one tile whose
-// first row has the global index base
-__device__ void tile_strides(uint32_t* s, int T, int num_ops, int num_keys,
-                             int64_t base, int64_t size, int stride0) {
-  for (int stride = stride0; stride > 0; stride >>= 1) {
-    __syncthreads();
-    for (int p = threadIdx.x; p < (T >> 1); p += blockDim.x) {
-      const int a = ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
-      const int b = a + stride;
-      const bool desc = ((base + a) & size) != 0;
-      if (greater_smem(s, T, num_keys, a, b) != desc) {
-        for (int j = 0; j < num_ops; ++j) {
-          const uint32_t t = s[j * T + a];
-          s[j * T + a] = s[j * T + b];
-          s[j * T + b] = t;
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void load_tile(const uint32_t* planes, uint32_t* s,
-                                          int64_t n, int num_ops, int T,
-                                          int64_t base) {
-  for (int q = threadIdx.x; q < num_ops * T; q += blockDim.x) {
-    const int j = q / T, i = q - j * T;
-    s[q] = planes[(int64_t)j * n + base + i];
-  }
-}
-
-__device__ __forceinline__ void store_tile(const uint32_t* s, uint32_t* planes,
-                                           int64_t n, int num_ops, int T,
-                                           int64_t base) {
-  for (int q = threadIdx.x; q < num_ops * T; q += blockDim.x) {
-    const int j = q / T, i = q - j * T;
-    planes[(int64_t)j * n + base + i] = s[q];
-  }
-}
-
 // K3b: strides T/2..1 of the merge level `size` (> T) on tile blockIdx.x.
-__global__ void __launch_bounds__(TILE_THREADS)
-merge_kernel(uint32_t* planes, int64_t n, int num_ops, int num_keys, int T,
-             int64_t size) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int64_t base = (int64_t)blockIdx.x * T;
-  load_tile(planes, smem, n, num_ops, T, base);
-  tile_strides(smem, T, num_ops, num_keys, base, size, T >> 1);
-  store_tile(smem, planes, n, num_ops, T, base);
+// Since size > T and the tile's first row is a multiple of T, the
+// direction is one for the whole tile, (base & size) != 0.
+template <int R>
+__global__ void __launch_bounds__(NET_THREADS)
+key_index_merge_kernel(uint32_t* planes, int64_t n, int num_ops, int num_keys,
+                       int T, int64_t size) {
+  sort_planes_tile<R, true>(planes, n, num_ops, num_keys, T, size);
+}
+
+const void* merge_fn(int R) {
+  return R == 2    ? (const void*)key_index_merge_kernel<2>
+         : R == 4  ? (const void*)key_index_merge_kernel<4>
+         : R == 8  ? (const void*)key_index_merge_kernel<8>
+         : R == 16 ? (const void*)key_index_merge_kernel<16>
+                   : nullptr;
 }
 
 // One compare-exchange pass at `stride` of level `size`, pair p of n/2:
@@ -152,23 +107,25 @@ cross_stage_kernel(uint32_t* planes, int64_t n, int num_ops, int num_keys,
   }
 }
 
-int tile_threads(int T) { return T / 2 < TILE_THREADS ? T / 2 : TILE_THREADS; }
-
 }  // namespace
 
-// One merge level `size` (a power of two > T), strides T/2..1.
+// One merge level `size` (a power of two > T, int64: it passes 2^31 at
+// 16 Mbp), strides T/2..1, in place; the geometry as K3a's
+// (w2rap_bitonic_tile_sort).  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a geometry the kernel does not take.
 extern "C" int w2rap_bitonic_merge(void* planes, int64_t n, int num_ops,
-                                   int num_keys, int T, int64_t size,
-                                   void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const int bytes = num_ops * T * (int)sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<(unsigned)(n / T), tile_threads(T), bytes,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(planes), n, num_ops, num_keys, T, size);
-  return (int)cudaGetLastError();
+                                   int num_keys, int T, int64_t size, int R,
+                                   int threads, int bytes, void* stream) {
+  if (size <= T) return (int)cudaErrorInvalidValue;
+  return net_launch(merge_fn(R), n, T, R, threads, bytes,
+                    (int64_t)num_ops * T * 4 + 4 * (int64_t)T, stream,
+                    static_cast<uint32_t*>(planes), n, num_ops, num_keys, T,
+                    size);
+}
+
+// attrs[0..3] as w2rap_bitonic_tile_sort_attrs, of K3b's kernel for R.
+extern "C" int w2rap_bitonic_merge_attrs(int R, int* attrs) {
+  return net_attrs(merge_fn(R), attrs);
 }
 
 // One pass at `stride` (a power of two < size) of level `size`.

@@ -4,7 +4,8 @@
 // launched by _partition_sort_planes (:330-457):
 //
 //   K4a _tile_sort_ascending_kernel (:152, launched :350)
-//       -> tile_sort_kernel: one block sorts one tile of T rows;
+//       -> tile_sort_kernel: one block sorts one tile of T rows with the
+//          key-index network of keyindex_net.cuh;
 //   K4b _partition_kernel (:221, launched :386)
 //       -> partition_kernel: one block cuts one sorted tile into its
 //          per-bin slots;
@@ -25,9 +26,10 @@
 // does not matter).
 //
 // Phases (ops/radix.py composes them and builds the splitters in torch):
-//   1. tile_sort_kernel: tile t (rows [t*T, (t+1)*T)) -> records sorted,
-//      bitonic network in shared memory (T <= 8192: 20 B a record,
-//      160 KB of the 227 KB a block may have).
+//   1. tile_sort_kernel: tile t (rows [t*T, (t+1)*T)) -> records sorted:
+//      the tile's cmp_keys planes in shared memory (128 KB at T = 8192
+//      and cmp_keys 4, + 32 KB of index buffers), (tile row, word 0)
+//      pairs through the network, each record written once.
 //   2. partition_kernel: s_b = #records < splitter_b by binary search in
 //      the sorted tile, s_0 = 0, s_B = #non-sentinel rows (a sentinel row
 //      is all ones in all num_keys words; such rows sort to the tile's
@@ -48,89 +50,64 @@
 //   (fill records become all-ones key words and 0 payload words).
 //
 // Bound on this card: device memory.  The planes are read once by phase 1
-// (the comparator words) and once by the gather (the rows taken); records (20 B) cross device memory once per
-// phase and once per merge level; the output (num_ops u32 per slot, 2x
-// the rows at CAP_FACTOR 2) is written once.  The design trades the TPU's
+// (the comparator words) and once by the gather (the rows taken); records
+// (20 B) cross device memory once per phase and once per merge level;
+// the output (num_ops u32 per slot, 2x the rows at CAP_FACTOR 2) is
+// written once.  The design trades the TPU's
 // O(log^2) plane movement for O(log) record movement; merge levels are
 // the term that grows with the region size.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "keyindex_net.cuh"
 #include "records.cuh"
 
 namespace {
 
-constexpr int SORT_THREADS = 1024;
 constexpr int PART_THREADS = 256;
 constexpr int MERGE_THREADS = 256;
 
-__device__ __forceinline__ void key_of(const uint32_t* __restrict__ planes,
-                                       int64_t n, int cmp_keys, int64_t row,
-                                       uint64_t& hi, uint64_t& lo) {
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-  for (int j = 0; j < cmp_keys; ++j) w[j] = planes[j * n + row];
-  hi = ((uint64_t)w[0] << 32) | w[1];
-  lo = ((uint64_t)w[2] << 32) | w[3];
-}
-
-// Ascending bitonic sort of m (a power of two) records in shared memory.
-__device__ void block_sort(uint64_t* hi, uint64_t* lo, uint32_t* idx, int m) {
-  for (int size = 2; size <= m; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < (m >> 1); i += blockDim.x) {
-        const int a = ((i & ~(stride - 1)) << 1) | (i & (stride - 1));
-        const int b = a + stride;
-        const bool up = (a & size) == 0;
-        const uint64_t ah = hi[a], al = lo[a], bh = hi[b], bl = lo[b];
-        const uint32_t ai = idx[a], bi = idx[b];
-        if (rec_less(bh, bl, bi, ah, al, ai) == up) {
-          hi[a] = bh; lo[a] = bl; idx[a] = bi;
-          hi[b] = ah; lo[b] = al; idx[b] = ai;
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-struct Smem {
-  uint64_t* hi;
-  uint64_t* lo;
-  uint32_t* idx;
-};
-
-__device__ __forceinline__ Smem carve(unsigned char* smem, int m) {
-  Smem s;
-  s.hi = reinterpret_cast<uint64_t*>(smem);
-  s.lo = s.hi + m;
-  s.idx = reinterpret_cast<uint32_t*>(s.lo + m);
-  return s;
-}
-
-// K4a: sort each tile of T rows into records.
-__global__ void __launch_bounds__(SORT_THREADS)
+// K4a: tile blockIdx.x of T rows -> its records, ascending: the direction
+// from the tile row, ties broken by the later words and then by the tile
+// row (the record order, idx = base + tile row).
+template <int R>
+__global__ void __launch_bounds__(NET_THREADS)
 tile_sort_kernel(const uint32_t* __restrict__ planes, int64_t n, int cmp_keys,
                  int T, uint64_t* __restrict__ out_hi,
                  uint64_t* __restrict__ out_lo,
                  uint32_t* __restrict__ out_idx) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Smem s = carve(smem, T);
-  const int64_t t0 = (int64_t)blockIdx.x * T;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    uint64_t h, l;
-    key_of(planes, n, cmp_keys, t0 + i, h, l);
-    s.hi[i] = h;
-    s.lo[i] = l;
-    s.idx[i] = (uint32_t)(t0 + i);
-  }
-  block_sort(s.hi, s.lo, s.idx, T);
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    out_hi[t0 + i] = s.hi[i];
-    out_lo[t0 + i] = s.lo[i];
-    out_idx[t0 + i] = s.idx[i];
-  }
+  extern __shared__ __align__(16) uint32_t k4a_smem[];
+  uint32_t* tile = k4a_smem;  // plane j of the tile at tile[j * T], swizzled
+  uint16_t* xbuf = reinterpret_cast<uint16_t*>(k4a_smem + (int64_t)cmp_keys * T);
+  const int64_t base = (int64_t)blockIdx.x * T;
+  const int p = threadIdx.x * R;  // tile row of position r = 0
+  load_tile<R>(planes, n, base, cmp_keys, T, tile);
+  __syncthreads();
+  const Net<R, true> net{tile, T, cmp_keys};
+  uint32_t key[R], ix[R];
+  net_init<R>(net, key, ix);
+  net_run<R, false>(net, xbuf, key, ix, p, 0);
+
+  // word j of position r (missing words 0); word 0 is key[r].  A thread's
+  // R records are R consecutive positions; a u64 is (low word, high word).
+  auto word = [&](int j, int r) -> uint32_t {
+    return j < cmp_keys ? net.word(j, ix[r]) : 0u;
+  };
+  store_words<2 * R>(reinterpret_cast<uint32_t*>(out_hi + base + p),
+                     [&](int i) { return i & 1 ? key[i / 2] : word(1, i / 2); });
+  store_words<2 * R>(reinterpret_cast<uint32_t*>(out_lo + base + p),
+                     [&](int i) { return word(i & 1 ? 2 : 3, i / 2); });
+  store_words<R>(out_idx + base + p,
+                 [&](int r) { return (uint32_t)base + (ix[r] & ROW); });
+}
+
+const void* tile_sort_fn(int R) {
+  return R == 2    ? (const void*)tile_sort_kernel<2>
+         : R == 4  ? (const void*)tile_sort_kernel<4>
+         : R == 8  ? (const void*)tile_sort_kernel<8>
+         : R == 16 ? (const void*)tile_sort_kernel<16>
+                   : nullptr;
 }
 
 // K4b: cut one sorted tile into its n_bins slots of cap records.
@@ -279,26 +256,30 @@ merge_pass_kernel(const uint64_t* __restrict__ s_hi,
   }
 }
 
-int sort_smem_bytes(int m) { return m * RECORD_BYTES; }
-
 }  // namespace
 
-// planes: (>= cmp_keys, n) u32, n a multiple of T (a power of two <= 8192).
-// hi/lo/idx: (n,) records out.  Returns cudaGetLastError().
+// planes: (>= cmp_keys, n) u32, 16-byte aligned; T a power of two
+// dividing n, R (2, 4, 8 or 16) rows a thread, threads * R == T,
+// bytes = cmp_keys * T * 4 + 4 * T of shared memory (ops/bitonic.py
+// tile_geometry).  hi/lo/idx: (n,) records out, 16-byte aligned.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a geometry the
+// kernel does not take.
 extern "C" int w2rap_radix_tile_sort(const void* planes, int64_t n,
-                                     int cmp_keys, int T, void* hi, void* lo,
-                                     void* idx, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const int bytes = sort_smem_bytes(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  tile_sort_kernel<<<(unsigned)(n / T), SORT_THREADS, bytes,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(planes), n, cmp_keys, T,
-      static_cast<uint64_t*>(hi), static_cast<uint64_t*>(lo),
-      static_cast<uint32_t*>(idx));
-  return (int)cudaGetLastError();
+                                     int cmp_keys, int T, int R, int threads,
+                                     int bytes, void* hi, void* lo, void* idx,
+                                     void* stream) {
+  return net_launch(tile_sort_fn(R), n, T, R, threads, bytes,
+                    (int64_t)cmp_keys * T * 4 + 4 * (int64_t)T, stream,
+                    static_cast<const uint32_t*>(planes), n, cmp_keys, T,
+                    static_cast<uint64_t*>(hi), static_cast<uint64_t*>(lo),
+                    static_cast<uint32_t*>(idx));
+}
+
+// attrs[0..3] = registers a thread, local (spilled) bytes a thread, static
+// shared bytes, most threads a block, of K4a's kernel for R (2, 4, 8 or
+// 16; cudaErrorInvalidValue for any other).
+extern "C" int w2rap_radix_tile_sort_attrs(int R, int* attrs) {
+  return net_attrs(tile_sort_fn(R), attrs);
 }
 
 // sp_hi/sp_lo: (n_bins-1,) splitter keys; s_*: the sorted tiles' records;

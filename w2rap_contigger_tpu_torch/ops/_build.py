@@ -42,7 +42,8 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     "w2rap_kmerize": [_P, _I64, _I64, _P, _I32, _I32, _P, _I64, _P],
     "w2rap_collapse": [_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P],
-    "w2rap_radix_tile_sort": [_P, _I64, _I32, _I32, _P, _P, _P, _P],
+    "w2rap_radix_tile_sort": [_P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
+    "w2rap_radix_tile_sort_attrs": [_I32, _P],
     "w2rap_radix_partition": [_P, _I64, _I32, _I32, _I32, _I32, _I32,
                               _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "w2rap_radix_region_sort": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32,
@@ -53,7 +54,8 @@ _SIGNATURES = {
                                _I32, _P, _I64, _I32, _I32, _P, _P],
     "w2rap_bitonic_tile_sort": [_P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P],
     "w2rap_bitonic_tile_sort_attrs": [_I32, _P],
-    "w2rap_bitonic_merge": [_P, _I64, _I32, _I32, _I32, _I64, _P],
+    "w2rap_bitonic_merge": [_P, _I64, _I32, _I32, _I32, _I64, _I32, _I32, _I32, _P],
+    "w2rap_bitonic_merge_attrs": [_I32, _P],
     "w2rap_bitonic_cross_stage": [_P, _I64, _I32, _I32, _I64, _I64, _P],
 }
 

@@ -1,7 +1,8 @@
 """K3a/K3b: bitonic sort of a kmer stream (W2RAP_SORT=pallas).
 
 `bitonic_sort` runs the CUDA kernels of csrc/bitonic_tile.cu (K3a) and
-csrc/bitonic.cu (the cross stage and K3b), which replace
+csrc/bitonic.cu (the cross stage and K3b), K3a and K3b built on the
+key-index network of csrc/keyindex_net.cuh, which replace
 the TPU kernels of w2rap_contigger_tpu/ops/pallas_sort.py (`bitonic_sort`
 :258, `_sort_planes` :206-255); `bitonic_sort_plain` is the same network
 in plain PyTorch, and the wrapper takes it only for tensors on the CPU.
@@ -30,7 +31,9 @@ plain version, which returns a new tensor):
   cross_stage        one stride >= T of a merge level (XLA in JAX,
                      _cross_stage :183; a kernel here: torch would need
                      about 3 (W+1) launches a stride);
-  merge_level (K3b)  strides T/2..1 of one merge level inside every tile.
+  merge_level (K3b)  strides T/2..1 of one merge level inside every tile,
+                     as the same key-index network (one level, one
+                     direction a tile; K3a's geometry).
 
 The port's tile is the largest power of two whose rows fit in 160 KB of
 one block's shared memory (8192 rows at 4 key words + payload, 2048 at
@@ -48,7 +51,7 @@ from . import bitkmer as bk
 LANES = 128
 TILE_BYTES = 160 * 1024  # a default tile's rows in one block's shared memory
 SMEM_MAX_BYTES = 232_448  # the most shared memory a block may opt in to
-TILE_THREADS = 1024  # K3a: the most threads a block
+TILE_THREADS = 1024  # K3a, K3b, K4a: the most threads a block
 
 
 # ---------------------------------------------------------------------------
@@ -71,7 +74,8 @@ def tile_rows_of(num_ops: int, n: int, tile_rows: int | None = None) -> int:
 
 
 def tile_geometry(T: int, num_ops: int) -> dict:
-    """Launch geometry of K3a on T-row tiles of num_ops planes: R rows a
+    """Launch geometry of the key-index network (K3a, K3b; K4a with
+    num_ops = cmp_keys) on T-row tiles of num_ops planes: R rows a
     thread (the least of 2, 4, 8, 16 that keeps T / R <= 1024 threads:
     more threads hide more latency, and R = 2 beat 4 and 8 at T = 2048,
     `scripts/sort_kernel_ab.py`), threads = T / R (at least a
@@ -81,10 +85,10 @@ def tile_geometry(T: int, num_ops: int) -> dict:
     R = max(2, T // TILE_THREADS)
     smem = num_ops * T * 4 + 4 * T
     if T & (T - 1) or R not in (2, 4, 8, 16) or not 32 <= T // R <= TILE_THREADS:
-        raise ValueError(f"K3a: a tile of {T} rows at {R} a thread")
+        raise ValueError(f"key-index network: a tile of {T} rows at {R} a thread")
     if smem > SMEM_MAX_BYTES:
         raise ValueError(
-            f"K3a: a tile of {T} rows x {num_ops} planes and its indices need "
+            f"key-index network: a tile of {T} rows x {num_ops} planes and its indices need "
             f"{smem} bytes, more than one block's {SMEM_MAX_BYTES}"
         )
     return {"R": R, "threads": T // R, "smem_bytes": smem}
@@ -222,17 +226,23 @@ def bitonic_sort_plain(planes: torch.Tensor, num_keys: int,
 # ---------------------------------------------------------------------------
 
 
+def _launch_net(entry: str, planes: torch.Tensor, num_keys: int, T: int, *size: int) -> None:
+    """Launch K3a (entry w2rap_bitonic_tile_sort) or K3b (w2rap_bitonic_merge,
+    with its level size) at tile_geometry's R, in place."""
+    if planes.data_ptr() % 16:
+        raise ValueError("the key-index kernels take 16-byte aligned planes (16 B vector loads)")
+    g = tile_geometry(T, planes.shape[0])
+    err = getattr(_build.library(), entry)(
+        planes.data_ptr(), planes.shape[1], planes.shape[0], num_keys, T, *size,
+        g["R"], g["threads"], g["smem_bytes"], _stream(planes),
+    )
+    _build.check(err, entry)
+
+
 def tile_sort(planes: torch.Tensor, num_keys: int, T: int) -> torch.Tensor:
     """K3a on CUDA tensors, in place (tile_sort_plain is the plain version)."""
     _launch_ready(planes, num_keys, T)
-    if planes.data_ptr() % 16:
-        raise ValueError("K3a takes 16-byte aligned planes (16 B vector loads)")
-    g = tile_geometry(T, planes.shape[0])
-    err = _build.library().w2rap_bitonic_tile_sort(
-        planes.data_ptr(), planes.shape[1], planes.shape[0], num_keys, T,
-        g["R"], g["threads"], g["smem_bytes"], _stream(planes),
-    )
-    _build.check(err, "w2rap_bitonic_tile_sort")
+    _launch_net("w2rap_bitonic_tile_sort", planes, num_keys, T)
     tdev.count_launch("bitonic_tile_sort")
     return planes
 
@@ -240,6 +250,11 @@ def tile_sort(planes: torch.Tensor, num_keys: int, T: int) -> torch.Tensor:
 def tile_sort_attrs(R: int) -> dict:
     """Registers, spills and static shared memory of K3a's kernel for R."""
     return _build.kernel_attrs("w2rap_bitonic_tile_sort_attrs", R)
+
+
+def merge_level_attrs(R: int) -> dict:
+    """Registers, spills and static shared memory of K3b's kernel for R."""
+    return _build.kernel_attrs("w2rap_bitonic_merge_attrs", R)
 
 
 def cross_stage(planes: torch.Tensor, num_keys: int, s: int, size: int) -> torch.Tensor:
@@ -263,11 +278,7 @@ def merge_level(planes: torch.Tensor, num_keys: int, T: int, size: int) -> torch
     _launch_ready(planes, num_keys, T)
     if size & (size - 1) or not T < size <= planes.shape[1]:
         raise ValueError(f"merge level {size}: a power of two in ({T}, n]")
-    err = _build.library().w2rap_bitonic_merge(
-        planes.data_ptr(), planes.shape[1], planes.shape[0], num_keys, T, size,
-        _stream(planes),
-    )
-    _build.check(err, "w2rap_bitonic_merge")
+    _launch_net("w2rap_bitonic_merge", planes, num_keys, T, size)
     tdev.count_launch("bitonic_merge")
     return planes
 

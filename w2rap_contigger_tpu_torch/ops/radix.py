@@ -1,7 +1,8 @@
 """K4a-d: partition (sample) sort of a kmer stream.
 
-`partition_sort` runs the CUDA kernels of csrc/radix.cu (K4a, K4b, K4d)
-and csrc/region_merge.cu (K4c), which replace the TPU kernels of
+`partition_sort` runs the CUDA kernels of csrc/radix.cu (K4a, K4b, K4d;
+K4a on the key-index network of csrc/keyindex_net.cuh) and
+csrc/region_merge.cu (K4c), which replace the TPU kernels of
 w2rap_contigger_tpu/ops/pallas_radix.py (`partition_sort` :482-520,
 `_partition_sort_planes` :330-457); `partition_sort_plain` is the same
 function in plain PyTorch, and the wrapper takes it only for tensors on
@@ -34,7 +35,10 @@ side, so every kernel can be held against its plain version alone; the
 phase wrappers take CUDA tensors only (partition_sort alone routes CPU
 tensors to the plain version):
 
-  tile_sort   (K4a)  planes -> records (hi, lo, idx) sorted per tile;
+  tile_sort   (K4a)  planes -> records (hi, lo, idx) sorted per tile:
+                     (tile row, first word) pairs through a bitonic
+                     network, ties broken by the later words and the
+                     row (bitonic.tile_geometry with num_ops = cmp_keys);
   splitters          sorted records -> (n_bins - 1) splitter keys (torch);
   partition   (K4b)  sorted records -> per-(bin, tile) slots + overflow;
                      every slot a sorted run: a tile's rows, then fill;
@@ -59,10 +63,11 @@ import torch
 from .. import device as tdev
 from . import _build
 from . import bitkmer as bk
+from . import bitonic
 
 LANES = 128
 MAX_CMP_KEYS = 4
-MAX_TILE = 8192  # records a block sorts in shared memory (20 B each)
+MAX_TILE = 8192  # rows of a K4a tile, records of a K4c chunk (shared memory)
 
 # tile_rows * 128 rows a tile; the port's default tile is the largest
 # that fits one block's shared memory (8192 records, 160 KB)
@@ -197,19 +202,30 @@ def tile_sort_plain(planes: torch.Tensor, cmp_keys: int, T: int):
 
 
 def tile_sort(planes: torch.Tensor, cmp_keys: int, T: int):
-    """K4a on CUDA tensors (tile_sort_plain is the plain version)."""
+    """K4a on CUDA tensors (tile_sort_plain is the plain version): the
+    planes must be 16-byte aligned (16 B vector loads) and n a multiple
+    of T."""
     _launch_ready(planes)
     n = planes.shape[1]
+    if n % T or planes.data_ptr() % 16:
+        raise ValueError(f"K4a takes 16-byte aligned planes of whole {T}-row tiles, "
+                         f"got {n} rows at address {planes.data_ptr():#x}")
+    g = bitonic.tile_geometry(T, cmp_keys)
     hi = torch.empty(n, dtype=torch.int64, device=planes.device)
     lo = torch.empty_like(hi)
     idx = torch.empty(n, dtype=torch.int32, device=planes.device)
     err = _build.library().w2rap_radix_tile_sort(
-        planes.data_ptr(), n, cmp_keys, T, hi.data_ptr(), lo.data_ptr(),
-        idx.data_ptr(), _stream(planes),
+        planes.data_ptr(), n, cmp_keys, T, g["R"], g["threads"], g["smem_bytes"],
+        hi.data_ptr(), lo.data_ptr(), idx.data_ptr(), _stream(planes),
     )
     _build.check(err, "w2rap_radix_tile_sort")
     tdev.count_launch("radix_tile_sort")
     return hi, lo, idx
+
+
+def tile_sort_attrs(R: int) -> dict:
+    """Registers, spills and static shared memory of K4a's kernel for R."""
+    return _build.kernel_attrs("w2rap_radix_tile_sort_attrs", R)
 
 
 # ---------------------------------------------------------------------------
