@@ -12,7 +12,9 @@ exits non-zero and prints no result line:
    at k=60 and k=200, L=250; K2 collapse on sorted W=4 and W=13 streams
    with cross-tile runs, runs longer than a tile, counts above 255 and
    sentinels, and on a W=17 stream in the partition sort's layout, with
-   sentinel runs mid-stream), with both times;
+   sentinel runs mid-stream, and on a W=4 stream whose 100k-row run has
+   one ctx value, so that the run never saturates), with both times,
+   bounds (the whole output written) and K2's registers and spills;
 3b. K4a-d (the partition sort) against their plain versions, kernel by
    kernel and whole, bit-identical: K4a (the key-index tile sort,
    csrc/radix.cu on csrc/keyindex_net.cuh) first alone at cmp_keys 1-4
@@ -21,9 +23,12 @@ exits non-zero and prints no result line:
    4 key words + payload; (b) step 3's shape at K=260, 17 key words with
    ctx in the pad bits, at the row count phase 6 counted; K4c (the merge
    of K4b's sorted slots, csrc/region_merge.cu) also with its final
-   gather; each kernel's time, its plain version's, its bound, and one
-   stable torch.sort of the leading int64 key as the library yardstick;
-   K4a's and K4c's launch geometry, registers, spills and shared bytes;
+   gather; K4d (the merge path by the block) at its first level and at
+   its last, as records and gathering; each kernel's time (K4d's mean
+   over the sort's levels, each level's printed), its plain version's,
+   its bound, and one stable torch.sort of the leading int64 key as the
+   library yardstick; K4a's, K4c's and K4d's launch geometry, registers,
+   spills and shared bytes;
    plus a skewed stream and one with real rows all ones in the
    comparator words, which must both raise the overflow flag;
 3c. K3a (the key-index tile sort, csrc/bitonic_tile.cu), the cross stage
@@ -260,14 +265,16 @@ def check_kmerize(k: int):
     return res
 
 
-def sorted_stream(W: int, n: int, seed: int, regions: int = 0) -> torch.Tensor:
+def sorted_stream(W: int, n: int, seed: int, regions: int = 0,
+                  one_ctx: bool = False) -> torch.Tensor:
     """(W+1, n) int32 sorted stream: real rows in segments whose lengths
     mix typical coverage (1..60), repeats longer than a tile (5000..20000
     rows) and one run above 100k rows; payload cnt 1..3 so sums pass 255;
     then all-ones sentinel rows with payload 0.  With regions > 0 the real
     rows are cut at segment bounds into that many regions of n/regions
     rows, each followed by a run of sentinels: the partition sort's
-    layout."""
+    layout.  With one_ctx the 100k-row run's ctx is one value, so its
+    payload never saturates and K2 walks back over all of it."""
     g = torch.Generator(device=DEV)
     g.manual_seed(seed)
     dev = DEV
@@ -291,6 +298,8 @@ def sorted_stream(W: int, n: int, seed: int, regions: int = 0) -> torch.Tensor:
     cnt = torch.randint(1, 4, (n_real,), device=dev, generator=g)
     real = torch.empty((W + 1, n_real), dtype=torch.int32, device=dev)
     real[:W] = bk.to_raw32(rows)
+    if one_ctx:
+        ctx[: int(seg[0])] = 0x24
     real[W] = bk.to_raw32((ctx << 8) | cnt)
     del rows
     out = torch.full((W + 1, n), -1, dtype=torch.int32, device=dev)
@@ -312,8 +321,9 @@ def sorted_stream(W: int, n: int, seed: int, regions: int = 0) -> torch.Tensor:
     return out
 
 
-def check_collapse(W: int, n: int, min_count: int, regions: int = 0):
-    planes = sorted_stream(W, n, SEED + W, regions)
+def check_collapse(W: int, n: int, min_count: int, regions: int = 0,
+                   one_ctx: bool = False):
+    planes = sorted_stream(W, n, SEED + W, regions, one_ctx)
     got = kcol.collapse(planes, min_count=min_count)
     want = kcol.collapse_plain(planes, min_count=min_count)
     torch.cuda.synchronize()
@@ -324,12 +334,13 @@ def check_collapse(W: int, n: int, min_count: int, regions: int = 0):
     ms = time_ms(lambda: kcol.collapse(planes, min_count=min_count))
     plain_ms = time_ms(lambda: kcol.collapse_plain(planes, min_count=min_count), reps=1)
     kept = int(got[1].sum())
-    # the input read + the compacted output (kept rows) + the tile counts
-    b, by = bound_ms(planes.numel() * 4 + kept * (W + 1) * 4 + got[1].numel() * 4)
+    # the input read + every output row written (kept rows and fill) +
+    # the tile counts
+    b, by = bound_ms(2 * planes.numel() * 4 + got[1].numel() * 4)
     res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
            "bound_by": by, "library_ms": None}
-    say("collapse", W=W, rows=n, regions=regions, min_count=min_count, kept=kept,
-        low_bins=got[2][1:min_count].tolist(), **fmt(res))
+    say("collapse", W=W, rows=n, regions=regions, min_count=min_count,
+        one_ctx=one_ctx, kept=kept, low_bins=got[2][1:min_count].tolist(), **fmt(res))
     del planes, got
     torch.cuda.empty_cache()
     return res
@@ -437,21 +448,47 @@ def check_radix(label: str, planes: torch.Tensor, num_keys: int, cmp_keys: int) 
         **radix.region_sort_attrs())
     del recs
 
-    # K4d: the first level against its plain version; the time is the
-    # mean of every level as the sort runs them (the last one gathering)
+    # K4d: the first level and the last (as records, and gathering the
+    # planes as the sort runs it) against their plain versions; the time
+    # is the mean of every level as the sort runs them, each level's
+    # printed too
     one = radix.merge_pass(*got, region, widths[0])
     err = max_abs_err(one, radix.merge_pass_plain(*got, region, widths[0]))
     del one
     plain_ms = time_ms(lambda: radix.merge_pass_plain(*got, region, widths[0]), reps=1)
+    r = got
+    for w in widths[:-1]:
+        r = radix.merge_pass(*r, region, w)
+    want = radix.merge_pass_plain(*r, region, widths[-1])
+    err = max(err, max_abs_err(radix.merge_pass(*r, region, widths[-1]), want))
+    fin = radix.merge_pass(*r, region, widths[-1], final=(planes, num_keys))
+    err = max(err, max_abs_err([fin], [radix.gather_plain(want[2], planes, num_keys)]))
+    del r, want, fin
+    torch.cuda.empty_cache()
+    level_ms = []
 
     def levels():
         r = got
+        marks = []
         for i, w in enumerate(widths):
             last = i == len(widths) - 1
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
             r = radix.merge_pass(*r, region, w, final=(planes, num_keys) if last else None)
+            t1.record()
+            marks.append((t0, t1))
+        torch.cuda.synchronize()
+        level_ms[:] = [a.elapsed_time(b) for a, b in marks]
         return r
 
     ms = time_ms(levels, reps=1) / len(widths)
+    geo = radix.merge_pass_geometry(widths[0])
+    say("radix_geometry", case=label, kernel="radix_merge_pass", width=widths[0], **geo,
+        **radix.merge_pass_attrs())
+    say("radix_levels", case=label, kernel="radix_merge_pass",
+        widths=",".join(str(w) for w in widths),
+        ms=",".join(f"{x:.4f}" for x in level_ms))
     L = len(widths)
     mean_log = sum(math.log2(w) for w in widths) / L
     # a level's mean: records read by every level and written by all but
@@ -949,6 +986,8 @@ def main():
     k2 = check_collapse(4, STEP2_ROWS, min_count=4)
     check_collapse(13, COLLAPSE_ROWS, min_count=1)
     check_collapse(17, COLLAPSE_ROWS, min_count=1, regions=16)
+    check_collapse(4, COLLAPSE_ROWS, min_count=4, one_ctx=True)
+    say("collapse_attrs", **kcol.collapse_attrs())
     say("phase3", seconds=f"{time.time() - t0:.1f}")
 
     # 3b (a): step 2's shape, 4 key words + payload (the radix stream

@@ -1,7 +1,9 @@
-"""K3a, K3b and K4a (the kernels on csrc/keyindex_net.cuh) checked and
-timed in one process on one GPU, optionally beside another checkout's.
+"""K3a, K3b and K4a (the kernels on csrc/keyindex_net.cuh), K4d (the
+radix merge level) and K2 (collapse) checked and timed in one process on
+one GPU, optionally beside another checkout's.
 
     python3 scripts/sort_kernel_ab.py [--parent DIR ...] [--rounds 2]
+        [--kernels k4a k3 k4d k2]
 
 Prints each kernel's registers, spilled (local) bytes and static shared
 memory at R = 2, 4, 8, 16 rows a thread (cudaFuncGetAttributes); holds
@@ -24,6 +26,18 @@ commit's K3a, K3b and K4a are built from its DIR, checked against the
 same plain versions and timed in the same turns under the DIR's name.
 Exits non-zero on any mismatch.
 
+K4d and K2 (--kernels k4d k2): their registers, spills and static
+shared memory, then each variant held bit for bit against the plain
+version and timed in turns beside the DIRs' kernels: K4d at its first
+level (records) and its last (gathering the planes) of step 2's and step
+3's sorts, as `chip_smoke.py` feeds them, with P = 8 (the port's) and P
+= 16 records a thread; K2 on `chip_smoke.py`'s sorted streams (W=4 at
+210.1M rows, min_count 4; W=13 and W=17 at 16M rows, W=17 in 16
+regions; W=4 at 16M rows with a 100k-row run of one ctx) at tiles of
+4096 and 2048 rows, and with V = 8 rows a thread (512 threads).  A
+variant is this checkout's csrc/ with one constant changed, built from a
+copy under csrc/build/variants/.
+
 The port runs each kernel at the R that `bitonic.tile_geometry` takes
 from the tile; the other R are the kernels' own template instances,
 launched here through their C entry points.
@@ -32,8 +46,11 @@ launched here through their C entry points.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import os
+import re
+import shutil
 import sys
 
 import torch
@@ -44,6 +61,7 @@ sys.path.insert(0, REPO)
 import chip_smoke as cs  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import bitkmer as bk  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import _build, bitonic, radix  # noqa: E402
+from w2rap_contigger_tpu_torch.ops import collapse as kcol  # noqa: E402
 
 STEP3_K2_ROWS = 4_599_661  # E. coli K=260 K2 rows (chip_smoke.py phase 6)
 RS = (2, 4, 8, 16)
@@ -61,6 +79,38 @@ def load_parent(root: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.library()
+
+
+# variant name -> (source, pattern, replacement): this checkout's csrc/
+# with one constant changed
+VARIANTS = {
+    "k4d_P16": ("radix.cu", r"constexpr int MERGE_P = 8;", "constexpr int MERGE_P = 16;"),
+    "k2_V8": ("collapse.cu",
+              r"constexpr int COLLAPSE_THREADS = 256;((?:\n//[^\n]*)*)\nconstexpr int V = 16;",
+              r"constexpr int COLLAPSE_THREADS = 512;\1\nconstexpr int V = 8;"),
+}
+
+
+def build_variant(name: str):
+    """The kernel library of this checkout with VARIANTS[name] applied,
+    built in a copy under csrc/build/variants/<name>."""
+    src, pat, rep = VARIANTS[name]
+    root = os.path.join(_build.BUILD_DIR, "variants", name)
+    pkg = os.path.join(root, "w2rap_contigger_tpu_torch")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(pkg, "ops"))
+    shutil.copy(os.path.join(REPO, "w2rap_contigger_tpu_torch", "ops", "_build.py"),
+                os.path.join(pkg, "ops"))
+    shutil.copytree(os.path.dirname(_build.sources()[0]), os.path.join(pkg, "csrc"),
+                    ignore=shutil.ignore_patterns("build"))
+    path = os.path.join(pkg, "csrc", src)
+    with open(path) as f:
+        text, hits = re.subn(pat, rep, f.read())
+    if hits != 1:
+        cs.fail(f"variant {name}: {pat!r} found {hits} times in {src}")
+    with open(path, "w") as f:
+        f.write(text)
+    return load_parent(root)
 
 
 def _geometry(fn, n_plain: int, R: int, T: int, nplanes: int) -> tuple:
@@ -252,17 +302,189 @@ def time_k3(label: str, planes, W: int, key, libs: dict, rounds: int) -> None:
         cs.say("k3_time", case=label, tile=T, variant=k, ms=f"{ms:.4f}")
 
 
+def k4d(lib, recs, region: int, width: int, final=None):
+    """One K4d level through lib's C entry point: records, or (final =
+    (planes, num_keys)) the gathered planes."""
+    total = recs[0].shape[0]
+    if final:
+        planes, num_keys = final
+        out = torch.empty((planes.shape[0], total), dtype=torch.int32, device=planes.device)
+        dst, gather = (None, None, None), (planes.data_ptr(), planes.shape[1],
+                                           planes.shape[0], num_keys, out.data_ptr())
+    else:
+        out = tuple(torch.empty_like(r) for r in recs)
+        dst, gather = tuple(r.data_ptr() for r in out), (None, 0, 0, 0, None)
+    err = lib.w2rap_radix_merge_pass(*(r.data_ptr() for r in recs), *dst, total, region,
+                                     width, int(bool(final)), *gather, _stream())
+    _build.check(err, "K4d")
+    return out
+
+
+def time_k4d(label: str, planes, num_keys: int, libs: dict, rounds: int) -> None:
+    """K4d's first and last level of one sort of planes, every library
+    checked against the plain version, then timed in turns."""
+    n = planes.shape[1]
+    T, n_tiles, n_bins, cap, region = radix.geometry(n)
+    s = radix.tile_sort(planes, 4, T)
+    sp = radix.splitters(s[0], s[1], T, n_bins)
+    *recs, _ = radix.partition(planes, *s, *sp, num_keys, 4, T, n_bins, cap)
+    del s
+    C = min(T, region)
+    widths = radix.merge_widths(region, C)
+    first = radix.region_sort(*recs, region, C, min(cap, C))
+    del recs
+    last = first
+    for w in widths[:-1]:
+        last = radix.merge_pass(*last, region, w)
+    final = (planes, num_keys)
+    fns = {}
+    for level, src, w, fin in (("first", first, widths[0], None),
+                               ("last", last, widths[-1], final)):
+        want = radix.merge_pass_plain(*src, region, w)
+        if fin:
+            want = radix.gather_plain(want[2], planes, num_keys)
+        for name, lib in libs.items():
+            if not same(k4d(lib, src, region, w, fin), want):
+                cs.fail(f"K4d {label} {level} level {name} differs from its plain version")
+            fns[f"k4d_{level}_{name}"] = event_ms(
+                lambda lib=lib, src=src, w=w, fin=fin: k4d(lib, src, region, w, fin))
+        del want
+        torch.cuda.empty_cache()
+    for k, ms in turns(fns, rounds).items():
+        cs.say("k4d_time", case=label, levels=len(widths), variant=k, ms=f"{ms:.4f}")
+
+
+def k2(lib, planes, min_count: int, tile: int):
+    """K2 through lib's C entry point."""
+    W, n = planes.shape[0] - 1, planes.shape[1]
+    out = torch.empty_like(planes)
+    counts = torch.empty(-(-n // tile), dtype=torch.int32, device=planes.device)
+    low = torch.zeros(kcol.LOW_BINS, dtype=torch.int32, device=planes.device)
+    err = lib.w2rap_collapse(planes.data_ptr(), n, W, min_count, tile, out.data_ptr(),
+                             counts.data_ptr(), low.data_ptr(), _stream())
+    _build.check(err, "K2")
+    return out, counts, low
+
+
+def time_k2(libs: dict, rounds: int) -> None:
+    """K2 on chip_smoke.py's sorted streams: every library at the
+    port's tile (and this checkout's also at 2048 rows) checked against
+    the plain version, then timed in turns."""
+    for label, W, n, mc, regions, one_ctx in (
+            ("step2_W4", 4, cs.STEP2_ROWS, 4, 0, False),
+            ("W13", 13, cs.COLLAPSE_ROWS, 1, 0, False),
+            ("W17_regions", 17, cs.COLLAPSE_ROWS, 1, 16, False),
+            ("W4_one_ctx", 4, cs.COLLAPSE_ROWS, 4, 0, True)):
+        planes = cs.sorted_stream(W, n, cs.SEED + W, regions, one_ctx)
+        fns = {}
+        for tile in (kcol.TILE, 2048):
+            want = kcol.collapse_plain(planes, mc, tile)
+            for name, lib in libs.items():
+                if tile != kcol.TILE and name != "new":
+                    continue
+                if not same(k2(lib, planes, mc, tile), want):
+                    cs.fail(f"K2 {label} tile {tile} {name} differs from its plain version")
+                fns[f"k2_tile{tile}_{name}"] = event_ms(
+                    lambda lib=lib, tile=tile: k2(lib, planes, mc, tile))
+            del want
+            torch.cuda.empty_cache()
+        for k, ms in turns(fns, rounds).items():
+            cs.say("k2_time", case=label, W=W, rows=n, variant=k, ms=f"{ms:.4f}")
+        del planes
+        torch.cuda.empty_cache()
+
+
+def check_small_k4d_k2(libs: dict) -> None:
+    """K4d at every level of small sorts (128-row tiles in one bin: 32 to
+    256 threads a block; 2048-row tiles in 4 bins: short and partnerless
+    last runs), as records and gathering, on a uniform and on a skewed
+    stream; K2 at tiles of 256, 1024 and 4096 rows on small sorted
+    streams (plain, in regions, with a one-ctx 100k-row run) at W = 4,
+    13, 17, n a multiple of 4 and not; every library against the plain
+    versions."""
+    cases = 0
+    for n, W, tile_rows, n_bins in ((80 * 128, 4, 1, None), (12 * 2048, 5, 16, 4)):
+        for copies in (2, 400):
+            planes = cs.kmer_stream(W, n, cs.SEED + n + copies, True, copies)
+            T, n_tiles, nb, cap, region = radix.geometry(n, tile_rows, n_bins)
+            s = radix.tile_sort(planes, 4, T)
+            sp = radix.splitters(s[0], s[1], T, nb)
+            *recs, _ = radix.partition(planes, *s, *sp, W, 4, T, nb, cap)
+            C = min(T, region)
+            recs = radix.region_sort_plain(*recs, region, C)
+            for w in radix.merge_widths(region, C):
+                want = radix.merge_pass_plain(*recs, region, w)
+                gathered = radix.gather_plain(want[2], planes, W)
+                for name, lib in libs.items():
+                    if w < 16 * 16 and "P16" in name:
+                        continue
+                    if not (same(k4d(lib, recs, region, w), want)
+                            and same(k4d(lib, recs, region, w, (planes, W)), gathered)):
+                        cs.fail(f"K4d small n={n} width={w} {name} differs")
+                    cases += 1
+                recs = want
+    for W, tile, mc, regions, one_ctx in ((4, 256, 4, 0, False), (13, 1024, 1, 2, False),
+                                          (17, 4096, 1, 0, True), (4, 4096, 4, 2, True)):
+        for n in (400_000, 400_003):
+            planes = cs.sorted_stream(W, n, cs.SEED + tile + n, regions, one_ctx)
+            want = kcol.collapse_plain(planes, mc, tile)
+            for name, lib in libs.items():
+                if not same(k2(lib, planes, mc, tile), want):
+                    cs.fail(f"K2 small W={W} tile={tile} n={n} {name} differs")
+                cases += 1
+    cs.say("small", kernels="K4d,K2", libraries=",".join(libs), cases=cases, identical=True)
+
+
+def attrs_of(lib, entry: str) -> dict:
+    """Registers, spilled bytes and static shared memory of a kernel of
+    lib (this checkout's or a variant's) through its `*_attrs` entry."""
+    buf = (ctypes.c_int * 4)()
+    _build.check(getattr(lib, entry)(buf), entry)
+    return {"regs": buf[0], "local_bytes": buf[1], "static_smem": buf[2]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", nargs="*", default=[],
                     help="unpacked checkouts of other commits of the port")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--kernels", nargs="+", default=["k4a", "k3", "k4d", "k2"],
+                    choices=["k4a", "k3", "k4d", "k2"])
+    ap.add_argument("--small", action="store_true",
+                    help="K4d and K2: attributes and the small checks only")
     args = ap.parse_args()
     card = cs.phase_probe()
     cs.phase_build()
     lib = _build.library()
     libs = {"new": lib, **{os.path.basename(os.path.normpath(d)): load_parent(d)
                            for d in args.parent}}
+    if "k4d" in args.kernels or "k2" in args.kernels:
+        variants = {v: build_variant(v) for v in VARIANTS
+                    if v.split("_")[0] in args.kernels}
+        for name, vlib in {"new": lib, **variants}.items():
+            for kernel, entry in (("radix_merge_pass", "w2rap_radix_merge_pass_attrs"),
+                                  ("collapse", "w2rap_collapse_attrs")):
+                cs.say("attrs", kernel=kernel, variant=name, **attrs_of(vlib, entry))
+        check_small_k4d_k2({**libs, **variants})
+        if args.small:
+            print(card, flush=True)
+            return
+        if "k4d" in args.kernels:
+            k4d_libs = {**libs, **{v: x for v, x in variants.items() if v.startswith("k4d")}}
+            T = radix.DEFAULT_TILE_ROWS * radix.LANES
+            for label, W, rows, payload, copies in (
+                    ("step2_W4", 4, cs.STEP2_ROWS, True, 45),
+                    ("step3_W17", 17, STEP3_K2_ROWS, False, 2)):
+                planes = cs.kmer_stream(W, -(-rows // T) * T, cs.SEED + W, payload, copies)
+                time_k4d(label, planes, W, k4d_libs, args.rounds)
+                del planes
+                torch.cuda.empty_cache()
+        if "k2" in args.kernels:
+            time_k2({**libs, **{v: x for v, x in variants.items() if v.startswith("k2")}},
+                    args.rounds)
+    if "k4a" not in args.kernels and "k3" not in args.kernels:
+        print(card, flush=True)
+        return
     for R in RS:
         cs.say("attrs", kernel="bitonic_tile_sort", R=R, **bitonic.tile_sort_attrs(R))
         cs.say("attrs", kernel="bitonic_merge", R=R, **bitonic.merge_level_attrs(R))
@@ -272,6 +494,8 @@ def main():
     T = radix.DEFAULT_TILE_ROWS * radix.LANES
     for label, W, rows, payload, copies in (("step2_W4", 4, cs.STEP2_ROWS, True, 45),
                                             ("step3_W17", 17, STEP3_K2_ROWS, False, 2)):
+        if "k4a" not in args.kernels:
+            break
         planes = cs.kmer_stream(W, -(-rows // T) * T, cs.SEED + W, payload, copies)
         key = bk.pair_key(bk.from_raw32(planes[0]), bk.from_raw32(planes[1]))
         time_k4a(label, planes, 4, key, libs, args.rounds)
@@ -279,6 +503,8 @@ def main():
         torch.cuda.empty_cache()
 
     for label, W, n in (("step2_W4", 4, cs.STEP2_POW2), ("step3_W17", 17, 1 << 23)):
+        if "k3" not in args.kernels:
+            break
         planes = cs.kmer_stream(W, n, cs.SEED + 3 + W, True, 45 if W == 4 else 2)
         key = bk.pair_key(bk.from_raw32(planes[0]), bk.from_raw32(planes[1]))
         time_k3(label, planes, W, key, libs, args.rounds)

@@ -5,9 +5,10 @@ count of valid rows and each region's rows (lexsorted by all planes, as
 only the order of rows tied on the comparator words may differ); the
 collision flag; the plain phases composed one by one; numpy models of
 K4a's key-index network (csrc/radix.cu on csrc/keyindex_net.cuh) against
-the plain tile sort and of K4c's merge path (csrc/region_merge.cu)
-against the plain chunk sort; and, on a card, every kernel against its
-plain version.  Tolerance: exact equality."""
+the plain tile sort, of K4c's merge path (csrc/region_merge.cu)
+against the plain chunk sort and of K4d's merge path by the block
+(csrc/radix.cu) against the plain merge level; and, on a card, every
+kernel against its plain version.  Tolerance: exact equality."""
 
 import numpy as np
 import pytest
@@ -231,7 +232,8 @@ MAX64 = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
 def _sw(k):
-    """region_merge.cu's shared-memory swizzle."""
+    """region_merge.cu's shared-memory swizzle (radix.cu's K4d output
+    staging too)."""
     return k ^ ((k >> 4) & 15)
 
 
@@ -454,3 +456,180 @@ def test_radix_kernels_match_plain(rng):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         got = radix.region_sort(*recs, region, C, min(cap, C), final=(planes, w))
         assert torch.equal(got, radix.gather_plain(want[2], planes, w))
+    # K4d alone at every level of the model's cases, as records and with
+    # the final gather
+    for case, (n, w, tile_rows, n_bins) in PASS_CASES.items():
+        for make in (_stream, _skewed):
+            recs, region, C, run = _slots(rng, n, w, tile_rows, n_bins, make)
+            planes = torch.from_numpy(make(rng, n, w).view(np.int32)).cuda()
+            recs = [r.cuda() for r in radix.region_sort_plain(*recs, region, C)]
+            for wd in radix.merge_widths(region, C):
+                want = radix.merge_pass_plain(*recs, region, wd)
+                got = radix.merge_pass(*recs, region, wd)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+                got = radix.merge_pass(*recs, region, wd, final=(planes, w))
+                assert torch.equal(got, radix.gather_plain(want[2], planes, w))
+                recs = want
+
+
+def _corank_warp(A, B, a, la, b, lb, d):
+    """radix.cu corank_warp for every block at once: 32 probes a step,
+    the ballot's count of splits at which A[p] <= B[d-1-p] holds (a
+    prefix of the lanes) keeping one gap of the stride."""
+    lo_i = np.maximum(d - lb, 0)
+    hi_i = np.minimum(d, la)
+    lanes = np.arange(32)
+    while (lo_i < hi_i).any():
+        act = lo_i < hi_i
+        s = np.where(act, (hi_i - lo_i + 31) // 32, 1)
+        p = lo_i[:, None] + lanes[None, :] * s[:, None]
+        ok = act[:, None] & (p < hi_i[:, None])
+        pa = np.where(ok, a[:, None] + p, 0)
+        qb = np.where(ok, b[:, None] + d[:, None] - 1 - p, 0)
+        le = ok & ~_rec_less(*(x[qb] for x in B), *(x[pa] for x in A))
+        t = le.sum(axis=1)
+        assert (le == (lanes[None, :] < t[:, None])).all()  # a prefix: the ballot's count
+        nhi = lo_i + t * s
+        lo_i = np.where(act & (t > 0), lo_i + (t - 1) * s + 1, lo_i)
+        hi_i = np.where(act, np.minimum(nhi, hi_i), hi_i)
+    return lo_i
+
+
+def _cover(g0, ln, s0, per, total):
+    """stage_slice's 16-byte cover of elements [g0, g0 + ln) placed at s0:
+    (shared start, global start, length) in elements, for every block."""
+    c0 = g0 // per
+    c1 = (g0 + ln + per - 1) // per
+    ln_c = np.where(ln > 0, (c1 - c0) * per, 0)
+    ss = s0 - (g0 - c0 * per)
+    assert ((ss >= 0) & (ss % per == 0))[ln > 0].all()
+    assert (c0 * per + ln_c <= total)[ln > 0].all()  # the cover stays in the array
+    return ss, c0 * per, ln_c
+
+
+def _pass_model(recs, region, width):
+    """K4d as radix.cu computes it, in numpy, every block and thread at
+    once: the block's outputs [o0, o1) in one pair, its two co-ranks by
+    the warp search in the records, the slices staged at their index mod
+    4 by 16-byte covers (which must not overlap), each thread's co-rank
+    by binary search in the slices, P sequential merges from the two
+    heads (an exhausted side a fill record), and the swizzled staging."""
+    g = radix.merge_pass_geometry(width)
+    P, T, B = g["P"], g["threads"], g["B"]
+    S = g["smem_bytes"] // radix.RECORD_BYTES
+    recs = [r.numpy().view(d) for r, d in zip(recs, (np.uint64, np.uint64, np.uint32))]
+    total = len(recs[0])
+    bpr = -(-region // B)
+    blk = np.arange(total // region * bpr)
+    rbase = blk // bpr * region
+    o0 = blk % bpr * B
+    o1 = np.minimum(o0 + B, region)
+    ps = o0 // (2 * width) * (2 * width)
+    assert (o1 <= ps + 2 * width).all()  # one pair a block
+    la = np.minimum(width, region - ps)
+    lb = np.clip(region - ps - width, 0, width)
+    a, b = rbase + ps, rbase + ps + width
+    d0, d1 = o0 - ps, o1 - ps
+    i0 = _corank_warp(recs, recs, a, la, b, lb, d0)
+    i1 = _corank_warp(recs, recs, a, la, b, lb, d1)
+    na, nb, cnt = i1 - i0, (d1 - i1) - (d0 - i0), d1 - d0
+    ga, gb = a + i0, b + (d0 - i0)
+    sa = ga & 3
+    sb = ((sa + na + 3) & ~3) + (gb & 3)
+    fills = (MAX64, MAX64, FULL)
+    sm = [np.full((len(blk), S), f) for f in fills]
+    owner = np.zeros((len(blk), S), dtype=np.int64)
+    for x, s, per in zip(recs, sm, (2, 2, 4)):
+        for tag, (g0, ln, s0) in enumerate(((ga, na, sa), (gb, nb, sb)), start=1):
+            ss, gs, lc = _cover(g0, ln, s0, per, total)
+            rows = np.repeat(np.arange(len(blk)), lc)
+            off = np.arange(lc.sum()) - np.repeat(np.cumsum(lc) - lc, lc)
+            col = np.repeat(ss, lc) + off
+            assert (col < S).all() and (owner[rows, col] != 3 - tag).all()
+            owner[rows, col] = tag
+            s[rows, col] = x[np.repeat(gs, lc) + off]
+    e = np.arange(T) * P
+    rb = np.arange(len(blk))[:, None]
+    sa2, sb2, na2, nb2 = sa[:, None], sb[:, None], na[:, None], nb[:, None]
+    lo_i = np.maximum(e[None, :] - nb2, 0)
+    hi_i = np.minimum(e[None, :], na2)
+    while (lo_i < hi_i).any():
+        go = lo_i < hi_i
+        mid = (lo_i + hi_i) >> 1
+        p = np.where(go, sa2 + mid, 0)
+        q = np.where(go, sb2 + e[None, :] - 1 - mid, 0)
+        le = ~_rec_less(*(s[rb, q] for s in sm), *(s[rb, p] for s in sm))
+        lo_i = np.where(go & le, mid + 1, lo_i)
+        hi_i = np.where(go & ~le, mid, hi_i)
+    i, j = lo_i, e[None, :] - lo_i
+    o = [np.empty((len(blk), T, P), dtype=s.dtype) for s in sm]
+
+    def head(k, n_, s0):
+        return [np.where(k < n_, s[rb, np.where(k < n_, s0 + k, 0)], f) for s, f in zip(sm, fills)]
+
+    for u in range(P):
+        ha, hb = head(i, na2, sa2), head(j, nb2, sb2)
+        take_a = ~_rec_less(*hb, *ha)
+        for x, ya, yb in zip(o, ha, hb):
+            x[:, :, u] = np.where(take_a, ya, yb)
+        i, j = i + take_a, j + ~take_a
+    k = e[:, None] + np.arange(P)[None, :]
+    stage = [np.zeros((len(blk), B), dtype=s.dtype) for s in sm]
+    for st, x in zip(stage, o):
+        st[:, _sw(k).reshape(-1)] = x.reshape(len(blk), -1)
+    out = [x.copy() for x in recs]
+    for x, st in zip(out, stage):
+        for q in range(len(blk)):
+            x[rbase[q] + o0[q]:rbase[q] + o1[q]] = st[q, _sw(np.arange(cnt[q]))]
+    return ([torch.from_numpy(out[0].view(np.int64)), torch.from_numpy(out[1].view(np.int64)),
+             torch.from_numpy(out[2].view(np.int32))], o0)
+
+
+PASS_CASES = {
+    # (n, w, tile_rows, n_bins): levels 2048, 4096 (a partnerless last
+    # run), 8192 (a short partner) of regions of 12288 records, 2048
+    # outputs a block; and 128-row tiles in one bin: 8 levels from 128
+    # (32 threads a block) in regions of 20480 records
+    "3_levels_B2048": (12 * 2048, 5, 16, 4),
+    "8_levels_from_128": (80 * 128, 4, 1, None),
+}
+
+
+@pytest.mark.parametrize("make", ["stream", "skewed"])
+@pytest.mark.parametrize("case", list(PASS_CASES))
+def test_merge_pass_model_matches_plain(rng, case, make):
+    """Every merge level of a sort, through the model, against
+    merge_pass_plain: slots with fill tails, short and partnerless last
+    runs, and (skewed) long runs of records tied on hi and lo, settled by
+    idx, across block edges."""
+    n, w, tile_rows, n_bins = PASS_CASES[case]
+    recs, region, C, run = _slots(rng, n, w, tile_rows, n_bins,
+                                  {"stream": _stream, "skewed": _skewed}[make])
+    recs = radix.region_sort_plain(*recs, region, C)
+    widths = radix.merge_widths(region, C)
+    assert len(widths) == {"3_levels_B2048": 3, "8_levels_from_128": 8}[case]
+    assert region % widths[-1] and region < 2 * widths[-1]  # a short last run
+    tied_edges = 0
+    for wd in widths:
+        want = radix.merge_pass_plain(*recs, region, wd)
+        got, o0 = _pass_model(recs, region, wd)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        hi, lo, idx = (x.numpy() for x in want)
+        starts = (np.arange(len(hi)) // region * region)[::region]
+        edges = (starts[:, None] + o0[o0 > 0][None, :len(o0)]).reshape(-1)
+        edges = edges[edges < len(hi)]
+        tied_edges += int(((hi[edges] == hi[edges - 1]) & (lo[edges] == lo[edges - 1])
+                           & (idx[edges] != -1)).sum())
+        recs = want
+    if make == "skewed":
+        assert tied_edges > 0  # some block edge fell inside a run of ties
+
+
+def test_merge_pass_geometry():
+    assert radix.merge_pass_geometry(8192) == {"P": 8, "threads": 256, "B": 2048,
+                                               "smem_bytes": 2064 * 20}
+    assert radix.merge_pass_geometry(1 << 24)["threads"] == 256
+    assert radix.merge_pass_geometry(128)["threads"] == 32
+    for bad in (64, 3000):
+        with pytest.raises(ValueError):
+            radix.merge_pass_geometry(bad)

@@ -42,10 +42,15 @@
 //      is therefore a sorted run: a tile's sorted rows, then fill.
 //   3. region_merge.cu: every chunk of C records of a region (C / cap
 //      slots) merged into one sorted run.
-//   4. merge_pass_kernel, width C, 2C, ... below the region: each record
-//      of a left run moves to (its index) + #records of the right run that
-//      are smaller; each record of a right run to (its index) + #records
-//      of the left run that are not larger (binary search, merge path).
+//   4. merge_pass_kernel, width C, 2C, ... below the region: runs 2p and
+//      2p+1 of every region merge into one (merge path by the block).  A
+//      block owns B = 2048 consecutive outputs of one pair; two warps find
+//      its two co-ranks in device memory (32 probes a step), the block
+//      stages its slices of the two runs in shared memory with 16-byte
+//      cp.async copies, each thread co-ranks and merges its P = 8
+//      outputs in registers (a <= b takes the left record), and the block
+//      stores its outputs from a swizzled staging buffer as 16-byte
+//      vectors.
 //   The last phase that runs gathers the num_ops planes through idx
 //   (fill records become all-ones key words and 0 payload words).
 //
@@ -55,7 +60,10 @@
 // the output (num_ops u32 per slot, 2x the rows at CAP_FACTOR 2) is
 // written once.  The design trades the TPU's
 // O(log^2) plane movement for O(log) record movement; merge levels are
-// the term that grows with the region size.
+// the term that grows with the region size.  A merge level's search is
+// one per block (about 205k a level at step 2's shape), not one per
+// record: the one-thread-a-record form waited on 13-24 dependent loads a
+// record and scattered its stores, 3.5x its bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -67,6 +75,10 @@ namespace {
 
 constexpr int PART_THREADS = 256;
 constexpr int MERGE_THREADS = 256;
+// K4d: records a thread merges a level (64 registers); P = 16 (120
+// registers) was 4-9% slower at the first level of step 2's and step 3's
+// sorts on an H100 80GB HBM3 at 700 W (scripts/sort_kernel_ab.py; PERF.md)
+constexpr int MERGE_P = 8;
 
 // K4a: tile blockIdx.x of T rows -> its records, ascending: the direction
 // from the tile row, ties broken by the later words and then by the tile
@@ -208,7 +220,77 @@ partition_kernel(const uint32_t* __restrict__ planes, int64_t n, int num_keys,
 
 // K4d: one merge level; runs of `width` records inside each region merge
 // pairwise into runs of 2*width (the last run of a region may be short or
-// have no partner).
+// have no partner).  Block geometry (ops/radix.py merge_pass_geometry):
+// B = threads * MERGE_P outputs a block, threads = min(MERGE_THREADS,
+// 2 * width / MERGE_P), so that B divides 2 * width and a block's outputs
+// [o0, o1) (region-relative, o1 <= o0 + B) lie in one pair.
+
+// staged records past B: the two slices' alignment heads and the tails
+// of their 16-byte covers
+constexpr int MERGE_PAD = 16;
+
+__host__ __device__ constexpr int merge_stage(int B) { return B + MERGE_PAD; }
+
+// the output staging swizzle (region_merge.cu's): a thread's P
+// consecutive positions fall on distinct banks across a warp
+__device__ __forceinline__ int mswz(int k) { return k ^ ((k >> 4) & 15); }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// Stage elements [g0, g0 + len) of a global array to shared elements
+// [s0, s0 + len) with 16-byte cp.async copies of the aligned chunks that
+// cover them; s0 == g0 (mod 4) keeps a chunk a chunk in shared memory
+// for 8- and 4-byte elements.  The cover's extra elements (at most 3 on
+// either side) land in the pads beside the slice; they never leave the
+// array, whose base and end are 16-byte aligned.
+template <typename E>
+__device__ __forceinline__ void stage_slice(const E* __restrict__ g,
+                                            int64_t g0, int len, E* s,
+                                            int s0) {
+  constexpr int PER = 16 / sizeof(E);
+  if (len <= 0) return;
+  const int64_t c0 = g0 / PER, c1 = (g0 + len + PER - 1) / PER;
+  char* sb = reinterpret_cast<char*>(s + (s0 - (int)(g0 - c0 * PER)));
+  const char* gb = reinterpret_cast<const char*>(g + c0 * PER);
+  for (int64_t c = threadIdx.x; c < c1 - c0; c += blockDim.x)
+    cp_async16(sb + c * 16, gb + c * 16);
+}
+
+// Co-rank of d outputs of the merge of A = [a, a + la) and B = [b, b +
+// lb): how many of the first d come from A, with a <= b taking a.  One
+// warp, 32 probes a step: lane l tests split lo + l*s (A[p] <= B[d-1-p]
+// holds below the co-rank and fails from it on), and the ballot's count
+// keeps the one gap of s that holds it: ceil(log33(width)) steps (3 at
+// width 8192, 5 at 2^24), each one round trip for all six loads.
+__device__ int64_t corank_warp(const uint64_t* __restrict__ hi,
+                               const uint64_t* __restrict__ lo,
+                               const uint32_t* __restrict__ idx, int64_t a,
+                               int64_t la, int64_t b, int64_t lb, int64_t d,
+                               int lane) {
+  int64_t l = d > lb ? d - lb : 0, h = d < la ? d : la;
+  while (l < h) {
+    const int64_t s = (h - l + 31) / 32;
+    const int64_t p = l + lane * s;
+    bool le = false;
+    if (p < h) {
+      const int64_t q = b + d - 1 - p;
+      const uint64_t ah = hi[a + p], al = lo[a + p], bh = hi[q], bl = lo[q];
+      const uint32_t ai = idx[a + p], bi = idx[q];
+      le = !rec_less(bh, bl, bi, ah, al, ai);
+    }
+    const int t = __popc(__ballot_sync(0xFFFFFFFFu, le));
+    const int64_t nh = l + t * s;
+    l = t ? l + (t - 1) * s + 1 : l;
+    h = nh < h ? nh : h;
+  }
+  return l;
+}
+
 __global__ void __launch_bounds__(MERGE_THREADS)
 merge_pass_kernel(const uint64_t* __restrict__ s_hi,
                   const uint64_t* __restrict__ s_lo,
@@ -218,41 +300,149 @@ merge_pass_kernel(const uint64_t* __restrict__ s_hi,
                   int64_t width, int final,
                   const uint32_t* __restrict__ planes, int64_t n, int num_ops,
                   int num_keys, uint32_t* __restrict__ out) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= total) return;
-  const int64_t rbase = (p / region) * region;
-  const int64_t o = p - rbase;
-  const int64_t run = o / width;
-  const int64_t pstart = (run ^ 1) * width;
-  const int64_t room = region - pstart;
-  const int64_t plen = room <= 0 ? 0 : (room < width ? room : width);
-  const uint64_t xh = s_hi[p], xl = s_lo[p];
-  const uint32_t xi = s_idx[p];
-  int64_t dst = p;
-  if (plen > 0) {
-    const bool left_run = (run & 1) == 0;
-    const int64_t base = rbase + pstart;
-    int64_t lo_i = 0, hi_i = plen;
-    while (lo_i < hi_i) {
-      const int64_t mid = (lo_i + hi_i) >> 1;
-      const uint64_t yh = s_hi[base + mid], yl = s_lo[base + mid];
-      const uint32_t yi = s_idx[base + mid];
-      // left run: count partners < x; right run: count partners <= x
-      const bool right = left_run ? rec_less(yh, yl, yi, xh, xl, xi)
-                                  : !rec_less(xh, xl, xi, yh, yl, yi);
-      if (right)
-        lo_i = mid + 1;
-      else
-        hi_i = mid;
-    }
-    dst = rbase + (run & ~(int64_t)1) * width + (o - run * width) + lo_i;
+  extern __shared__ __align__(16) unsigned char k4d_smem[];
+  __shared__ int64_t s_co[2];
+  const int tid = threadIdx.x;
+  const int B = blockDim.x * MERGE_P;
+  const int S = merge_stage(B);
+  uint64_t* sh = reinterpret_cast<uint64_t*>(k4d_smem);
+  uint64_t* sl = sh + S;
+  uint32_t* si = reinterpret_cast<uint32_t*>(sl + S);
+
+  // this block's outputs [o0, o1) of region r, in the pair starting at ps
+  const int64_t bpr = (region + B - 1) / B;
+  const int64_t rbase = (int64_t)(blockIdx.x / bpr) * region;
+  const int64_t o0 = (int64_t)(blockIdx.x % bpr) * B;
+  const int64_t o1 = o0 + B < region ? o0 + B : region;
+  const int64_t ps = o0 / (2 * width) * (2 * width);
+  const int64_t la = width < region - ps ? width : region - ps;
+  const int64_t room = region - ps - width;
+  const int64_t lb = room <= 0 ? 0 : (room < width ? room : width);
+  const int64_t a = rbase + ps, b = a + width;
+  const int64_t d0 = o0 - ps, d1 = o1 - ps;
+
+  // the block's two co-ranks, one warp each (one warp both at 32 threads)
+  for (int which = tid >> 5; which < 2; which += blockDim.x >> 5) {
+    const int64_t c =
+        corank_warp(s_hi, s_lo, s_idx, a, la, b, lb, which ? d1 : d0, tid & 31);
+    if ((tid & 31) == 0) s_co[which] = c;
   }
-  if (final) {
-    write_row(planes, n, num_ops, num_keys, out, total, dst, xi);
+  __syncthreads();
+  const int64_t i0 = s_co[0], i1 = s_co[1];
+  const int na = (int)(i1 - i0);
+  const int nb = (int)((d1 - i1) - (d0 - i0));
+  const int cnt = (int)(d1 - d0);
+
+  // slices A[i0, i1) at sa and B[d0 - i0, d1 - i1) at sb, each placed
+  // at its global index mod 4 so that its 16-byte chunks stay chunks
+  const int64_t ga = a + i0, gb = b + (d0 - i0);
+  const int sa = (int)(ga & 3);
+  const int sb = ((sa + na + 3) & ~3) + (int)(gb & 3);
+  stage_slice(s_hi, ga, na, sh, sa);
+  stage_slice(s_lo, ga, na, sl, sa);
+  stage_slice(s_idx, ga, na, si, sa);
+  stage_slice(s_hi, gb, nb, sh, sb);
+  stage_slice(s_lo, gb, nb, sl, sb);
+  stage_slice(s_idx, gb, nb, si, sb);
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  // thread t: outputs e .. e + P - 1 of the block, co-ranked in the
+  // slices, merged into registers (a <= b takes a; an exhausted side
+  // reads as a fill record, which only ever ties with fill)
+  const int e = tid * MERGE_P;
+  uint64_t oh[MERGE_P], ol[MERGE_P];
+  uint32_t oi[MERGE_P];
+  if (e < cnt) {
+    int l = e > nb ? e - nb : 0, h = e < na ? e : na;
+    while (l < h) {
+      const int mid = (l + h) >> 1;
+      const int p = sa + mid, q = sb + e - 1 - mid;
+      if (!rec_less(sh[q], sl[q], si[q], sh[p], sl[p], si[p]))
+        l = mid + 1;
+      else
+        h = mid;
+    }
+    int i = l, j = e - l;
+    uint64_t ah = MAX64, al = MAX64, bh = MAX64, bl = MAX64;
+    uint32_t ai = FILL_IDX, bi = FILL_IDX;
+    if (i < na) ah = sh[sa + i], al = sl[sa + i], ai = si[sa + i];
+    if (j < nb) bh = sh[sb + j], bl = sl[sb + j], bi = si[sb + j];
+#pragma unroll
+    for (int u = 0; u < MERGE_P; ++u) {
+      const bool take_a = !rec_less(bh, bl, bi, ah, al, ai);
+      oh[u] = take_a ? ah : bh;
+      ol[u] = take_a ? al : bl;
+      oi[u] = take_a ? ai : bi;
+      if (u + 1 < MERGE_P) {
+        if (take_a) {
+          ++i;
+          ah = MAX64, al = MAX64, ai = FILL_IDX;
+          if (i < na) ah = sh[sa + i], al = sl[sa + i], ai = si[sa + i];
+        } else {
+          ++j;
+          bh = MAX64, bl = MAX64, bi = FILL_IDX;
+          if (j < nb) bh = sh[sb + j], bl = sl[sb + j], bi = si[sb + j];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (e < cnt) {
+#pragma unroll
+    for (int u = 0; u < MERGE_P; ++u) {
+      const int k = mswz(e + u);
+      if (e + u < cnt) {
+        if (!final) sh[k] = oh[u], sl[k] = ol[u];
+        si[k] = oi[u];
+      }
+    }
+  }
+  __syncthreads();
+
+  // the block's outputs as 16-byte vectors (records: 2 of hi or lo, 4 of
+  // idx; final: 4 rows of each plane, gathered through idx); scalar when
+  // the destination is not 16-byte aligned, and for a ragged tail
+  const int64_t dst0 = rbase + o0;
+  const bool vec = ((dst0 | (final ? total : 0)) & 3) == 0;
+  const int nv = vec ? cnt / 4 : 0;
+  if (!final) {
+    for (int c = tid; c < 2 * nv; c += blockDim.x) {
+      const int k = 2 * c;
+      reinterpret_cast<ulonglong2*>(d_hi + dst0)[c] =
+          make_ulonglong2(sh[mswz(k)], sh[mswz(k + 1)]);
+      reinterpret_cast<ulonglong2*>(d_lo + dst0)[c] =
+          make_ulonglong2(sl[mswz(k)], sl[mswz(k + 1)]);
+    }
+    for (int c = tid; c < nv; c += blockDim.x) {
+      const int k = 4 * c;
+      reinterpret_cast<uint4*>(d_idx + dst0)[c] =
+          make_uint4(si[mswz(k)], si[mswz(k + 1)], si[mswz(k + 2)],
+                     si[mswz(k + 3)]);
+    }
+    for (int k = 4 * nv + tid; k < cnt; k += blockDim.x) {
+      const int q = mswz(k);
+      d_hi[dst0 + k] = sh[q];
+      d_lo[dst0 + k] = sl[q];
+      d_idx[dst0 + k] = si[q];
+    }
   } else {
-    d_hi[dst] = xh;
-    d_lo[dst] = xl;
-    d_idx[dst] = xi;
+    for (int jp = 0; jp < num_ops; ++jp) {
+      const uint32_t* pl = planes + jp * n;
+      uint32_t* o = out + jp * total + dst0;
+      const uint32_t fill = jp < num_keys ? FULL : 0u;
+      auto row = [&](int k) {
+        const uint32_t x = si[mswz(k)];
+        return x != FILL_IDX ? pl[x] : fill;
+      };
+#pragma unroll 2
+      for (int c = tid; c < nv; c += blockDim.x) {
+        const int k = 4 * c;
+        reinterpret_cast<uint4*>(o)[c] =
+            make_uint4(row(k), row(k + 1), row(k + 2), row(k + 3));
+      }
+      for (int k = 4 * nv + tid; k < cnt; k += blockDim.x) o[k] = row(k);
+    }
   }
 }
 
@@ -305,7 +495,10 @@ extern "C" int w2rap_radix_partition(
 }
 
 // s_* -> d_* (or, final, the gathered planes into out), one merge level
-// of runs of `width` records in every region.  Returns cudaGetLastError().
+// of runs of `width` records (a power of two >= 16 * MERGE_P) in every
+// region of `region` records; every pointer 16-byte aligned.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel
+// does not take.
 extern "C" int w2rap_radix_merge_pass(const void* s_hi, const void* s_lo,
                                       const void* s_idx, void* d_hi,
                                       void* d_lo, void* d_idx, int64_t total,
@@ -314,8 +507,25 @@ extern "C" int w2rap_radix_merge_pass(const void* s_hi, const void* s_lo,
                                       int num_ops, int num_keys, void* out,
                                       void* stream) {
   if (total <= 0) return (int)cudaSuccess;
-  const int64_t blocks = (total + MERGE_THREADS - 1) / MERGE_THREADS;
-  merge_pass_kernel<<<(unsigned)blocks, MERGE_THREADS, 0,
+  auto misaligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if (width & (width - 1) || 2 * width < 32 * MERGE_P || region <= 0 ||
+      total % region || misaligned(s_hi) || misaligned(s_lo) ||
+      misaligned(s_idx) ||
+      (final ? misaligned(planes) || misaligned(out)
+             : misaligned(d_hi) || misaligned(d_lo) || misaligned(d_idx)))
+    return (int)cudaErrorInvalidValue;
+  const int threads =
+      2 * width / MERGE_P < MERGE_THREADS ? (int)(2 * width / MERGE_P)
+                                          : MERGE_THREADS;
+  const int B = threads * MERGE_P;
+  const int bytes = merge_stage(B) * RECORD_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      merge_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t blocks = (total / region) * ((region + B - 1) / B);
+  merge_pass_kernel<<<(unsigned)blocks, threads, bytes,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(s_hi), static_cast<const uint64_t*>(s_lo),
       static_cast<const uint32_t*>(s_idx), static_cast<uint64_t*>(d_hi),
@@ -323,4 +533,10 @@ extern "C" int w2rap_radix_merge_pass(const void* s_hi, const void* s_lo,
       region, width, final, static_cast<const uint32_t*>(planes), n, num_ops,
       num_keys, static_cast<uint32_t*>(out));
   return (int)cudaGetLastError();
+}
+
+// attrs[0..3] = registers a thread, local (spilled) bytes a thread, static
+// shared bytes, most threads a block, of K4d's kernel.
+extern "C" int w2rap_radix_merge_pass_attrs(int* attrs) {
+  return net_attrs((const void*)merge_pass_kernel, attrs);
 }

@@ -42,6 +42,7 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     "w2rap_kmerize": [_P, _I64, _I64, _P, _I32, _I32, _P, _I64, _P],
     "w2rap_collapse": [_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P],
+    "w2rap_collapse_attrs": [_P],
     "w2rap_radix_tile_sort": [_P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
     "w2rap_radix_tile_sort_attrs": [_I32, _P],
     "w2rap_radix_partition": [_P, _I64, _I32, _I32, _I32, _I32, _I32,
@@ -52,6 +53,7 @@ _SIGNATURES = {
     "w2rap_radix_region_sort_attrs": [_P],
     "w2rap_radix_merge_pass": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                                _I32, _P, _I64, _I32, _I32, _P, _P],
+    "w2rap_radix_merge_pass_attrs": [_P],
     "w2rap_bitonic_tile_sort": [_P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P],
     "w2rap_bitonic_tile_sort_attrs": [_I32, _P],
     "w2rap_bitonic_merge": [_P, _I64, _I32, _I32, _I32, _I64, _I32, _I32, _I32, _P],

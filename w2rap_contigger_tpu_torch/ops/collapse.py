@@ -2,8 +2,11 @@
 
 `collapse` is the wrapper of the CUDA kernel csrc/collapse.cu, which
 replaces the TPU kernel w2rap_contigger_tpu/ops/pallas_collapse.py:
-_collapse_kernel (:83).  `collapse_plain` is the same function in plain
-PyTorch; the wrapper takes it only for tensors on the CPU.
+_collapse_kernel (:83): one block a tile, 16 rows a thread, a segmented
+scan of the payload in registers and shuffles, and a block-wide walk
+back for a tile's first segment when it began in an earlier tile.
+`collapse_plain` is the same function in plain PyTorch; the wrapper
+takes it only for tensors on the CPU.
 
 Input: (W+1, n) int32 planes of raw u32 bits, sorted so equal kmers are
 adjacent — W word planes and a payload plane (ctx << 8) | cnt; all-ones
@@ -31,6 +34,9 @@ from . import bitkmer as bk
 
 TILE = 4096  # rows per CUDA block (a multiple of the kernel's 256 threads)
 LOW_BINS = 128
+ROWS_PER_THREAD = 16  # V: the rows each of the kernel's 256 threads owns
+KERNEL_THREADS = 256
+MAX_KERNEL_TILE = KERNEL_THREADS * ROWS_PER_THREAD  # one pass of a block
 
 
 def _check(planes: torch.Tensor, min_count: int, tile: int) -> tuple[int, int]:
@@ -99,6 +105,8 @@ def collapse(planes: torch.Tensor, min_count: int = 1, tile: int = TILE):
     if planes.device.type == "cpu":
         return collapse_plain(planes, min_count, tile)
     W, n = _check(planes, min_count, tile)
+    if tile > MAX_KERNEL_TILE:
+        raise ValueError(f"tile {tile}: the kernel takes at most {MAX_KERNEL_TILE} rows")
     if planes.device.type != "cuda":
         raise ValueError(f"collapse: unsupported device {planes.device}")
     if not planes.is_contiguous():
@@ -118,3 +126,8 @@ def collapse(planes: torch.Tensor, min_count: int = 1, tile: int = TILE):
     _build.check(err, "w2rap_collapse")
     tdev.count_launch("collapse")
     return out, tile_counts, low_bins
+
+
+def collapse_attrs() -> dict:
+    """Registers, spills and static shared memory of K2's kernel."""
+    return _build.kernel_attrs("w2rap_collapse_attrs")

@@ -46,7 +46,10 @@ tensors to the plain version):
                      of `run` = min(cap, C) records (K4b's slots), merged
                      into one sorted run (merge path in shared memory,
                      log2(C / run) levels; region_merge_geometry);
-  merge_pass  (K4d)  one merge level of runs of `width` records;
+  merge_pass  (K4d)  one merge level of runs of `width` records (merge
+                     path by the block: one co-rank search a block in
+                     device memory, the slices staged in shared memory,
+                     P records a thread; merge_pass_geometry);
   gather             records -> the output planes (fused into the last
                      kernel on the card).
 
@@ -75,6 +78,9 @@ DEFAULT_TILE_ROWS = 64
 DEFAULT_REGION_ROWS = 1024  # target region rows / 128 for the default n_bins
 CAP_FACTOR = 2  # slot capacity = CAP_FACTOR * tile / bins
 MERGE_OUTPUTS = 8  # K4c: records a thread merges per level (P, region_merge.cu)
+PASS_OUTPUTS = 8  # K4d: records a thread merges (MERGE_P, radix.cu)
+PASS_THREADS = 256  # K4d: most threads a block (MERGE_THREADS, radix.cu)
+PASS_PAD = 16  # K4d: staged records past a block's outputs (MERGE_PAD)
 MAX_RUNS = 64  # K4c: sorted runs a chunk may hold
 RECORD_BYTES = 20  # hi, lo, idx (records.cuh)
 
@@ -120,6 +126,21 @@ def region_merge_geometry(C: int, run: int) -> dict:
         raise ValueError(f"K4c geometry: a chunk of {C} records in runs of {run}")
     return {"m": m, "run": run, "levels": (m // run).bit_length() - 1, "P": P,
             "threads": m // P, "smem_bytes": m * RECORD_BYTES}
+
+
+def merge_pass_geometry(width: int) -> dict:
+    """Launch geometry of K4d at run width `width` (a power of two >=
+    16 * P): P records a thread merges, threads = min(256, 2 * width / P),
+    B = threads * P outputs a block (B divides 2 * width, so a block's
+    outputs lie in one pair of runs), and the dynamic shared memory
+    (B + 16 staged records, 20 B each)."""
+    P = PASS_OUTPUTS
+    if width & (width - 1) or 2 * width < 32 * P:
+        raise ValueError(f"K4d geometry: run width {width}")
+    threads = min(PASS_THREADS, 2 * width // P)
+    B = threads * P
+    return {"P": P, "threads": threads, "B": B,
+            "smem_bytes": (B + PASS_PAD) * RECORD_BYTES}
 
 
 def _check(planes: torch.Tensor, num_keys: int, cmp_keys: int) -> int:
@@ -382,9 +403,16 @@ def region_sort_attrs() -> dict:
 
 def merge_pass(r_hi, r_lo, r_idx, region: int, width: int, final=None):
     """K4d on CUDA tensors, one merge level (merge_pass_plain, then
-    gather_plain, is the plain version).  final = (planes, num_keys):
-    gather the output planes instead of returning records."""
+    gather_plain, is the plain version): merge path by the block
+    (merge_pass_geometry).  final = (planes, num_keys): gather the output
+    planes instead of returning records."""
+    merge_pass_geometry(width)
     return _launch_records("merge_pass", (r_hi, r_lo, r_idx), (region, width), final)
+
+
+def merge_pass_attrs() -> dict:
+    """Registers, spills and static shared memory of K4d's kernel."""
+    return _build.kernel_attrs("w2rap_radix_merge_pass_attrs")
 
 
 def _launch_records(name: str, recs, geom, final):
