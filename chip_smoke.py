@@ -6,7 +6,9 @@ Phases, each printing its results on a line of its own; any failure
 exits non-zero and prints no result line:
 
 1. probe the card (torch.cuda, nvidia-smi name and power limit);
-2. build the CUDA kernels from csrc/ with nvcc;
+2. build the CUDA kernels from csrc/ with nvcc, and the host C++ leaves
+   of step 5's blob-local graphs (native/{count,graph,path}_kernel.cc)
+   with g++;
 3. each kernel against its plain PyTorch version, element by element, on
    the card at the main path's shapes (K1 kmerize on one 65536-read chunk
    at k=60 and k=200, L=250; K2 collapse on sorted W=4 and W=13 streams
@@ -53,6 +55,14 @@ exits non-zero and prints no result line:
    large_K.clean checkpoints must be identical, every K3 kernel launched,
    and Clean200x must delete edges (the kept sequencing errors branch the
    graph); its seconds printed;
+4c. steps 1-5 (K=200) on the repeat-rich 500 kb genome of
+   scripts/parity_repeat.sh (12 copies of a 3 kb repeat, 4 coverage
+   dips, 60k PE250 pairs, seed 7) under the default sort, --device cuda
+   against --device cpu: every checkpoint through large_K.final must be
+   identical, step 5 must solve a blob and add a piece, and K2 (collapse)
+   must launch inside step 5 (AddNewStuff's count); the blob and piece
+   counts, AssembleGaps seconds and the step-5 split on both devices
+   printed;
 5. step 2 at E. coli scale (4.6 Mbp, 550k PE250 pairs, seed 42) on the
    card with W2RAP_TIMELOG=1: both kernels launched, graph and paths
    validated, step split and peak device memory printed;
@@ -62,7 +72,13 @@ exits non-zero and prints no result line:
    the radix run with no exact recount, every K3 kernel in step 2 and in
    step 3 of the pallas run, HBV and paths validated; the step-3 and
    step-4 split, the K2 rows, the unique K2 kmers and the peak device
-   memory printed.
+   memory printed;
+7. steps 1-5 at E. coli scale with gaps (4.6 Mbp, 550k PE250 pairs, 12
+   copies of a 3 kb repeat, 8 coverage dips, seed 7) at K=260 on the
+   card: graph and paths validated, the .perf walls, the step-5 split
+   (step5.unsat, .blobs, .add_new_stuff and its layers, .partners), the
+   blobs and pieces, the peak device memory and step 5's kernel
+   launches printed.
 
 Then the total seconds, one JSON line of the kernels, and last the
 device JSON line.
@@ -100,7 +116,8 @@ from w2rap_contigger_tpu_torch.ops import collapse as kcol  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import kmer_engine as tke  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import kmerize as kkm  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import radix  # noqa: E402
-from w2rap_contigger_tpu_torch.pipeline import step3_repath  # noqa: E402
+from w2rap_contigger_tpu_torch import native  # noqa: E402
+from w2rap_contigger_tpu_torch.pipeline import step3_repath, step5_gaps  # noqa: E402
 from w2rap_contigger_tpu_torch.utils import sysinfo  # noqa: E402
 
 DEV = "cuda"
@@ -109,6 +126,13 @@ CHUNK_READS = 65536
 READ_LEN = 250
 ECOLI = {"glen": 4_600_000, "pairs": 550_000}
 SMALL = {"glen": 200_000, "pairs": 24_000}
+# scripts/parity_repeat.sh's data, and E. coli scale with gaps
+REPEAT = {"glen": 500_000, "pairs": 60_000, "seed": 7,
+          "extra": ("--repeats", "12", "--repeat_len", "3000", "--dips", "4")}
+ECOLI_GAPS = {"glen": 4_600_000, "pairs": 550_000, "seed": 7,
+              "extra": ("--repeats", "12", "--repeat_len", "3000", "--dips", "8")}
+NATIVE_LEAVES = (("w2rapcount", "count_kernel.cc"), ("w2rapgraph", "graph_kernel.cc"),
+                 ("w2rappath", "path_kernel.cc"))
 STEP2_ROWS = 1_100_000 * (READ_LEN - 60 + 1)  # E. coli k=60 kmer rows
 COLLAPSE_ROWS = 16_000_000  # the W=13 and W=17 K2 checks
 OVERFLOW_ROWS = 64 * 8192
@@ -136,6 +160,7 @@ STEP2_POW2 = 1 << 28  # the power of two above step 2's E. coli kmer rows
 SMALL_K = ("pe.small_K.hbv.npz", "pe.small_K.paths.npz")
 LARGE_K = ("pe.large_K.hbv.npz", "pe.large_K.paths.npz")
 CLEAN = ("pe.large_K.clean.hbv.npz", "pe.large_K.clean.paths.npz")
+FINAL = ("pe.large_K.final.hbv.npz", "pe.large_K.final.paths.npz")
 
 
 def fail(msg: str):
@@ -226,6 +251,11 @@ def phase_build():
     _build.library()
     say("build", seconds=f"{time.time() - t0:.2f}",
         nvcc_seconds=_build.BUILD_SECONDS, sources=len(_build.sources()))
+    t0 = time.time()
+    for name, src in NATIVE_LEAVES:
+        if native.load(name, [src], libs=["pthread"]) is None:
+            fail(f"the host leaf native/{src} did not build")
+    say("build_native", seconds=f"{time.time() - t0:.2f}", leaves=len(NATIVE_LEAVES))
 
 
 # ---------------------------------------------------------------------------
@@ -773,12 +803,12 @@ def check_bitonic(label: str, planes: torch.Tensor, num_keys: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def synth(out_dir: str, glen: int, pairs: int):
+def synth(out_dir: str, glen: int, pairs: int, seed: int = SEED, extra=()):
     t0 = time.time()
     subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "make_synth_fastq.py"),
          out_dir, "--glen", str(glen), "--pairs", str(pairs),
-         "--rlen", str(READ_LEN), "--insert", "500", "--seed", str(SEED)],
+         "--rlen", str(READ_LEN), "--insert", "500", "--seed", str(seed), *extra],
         check=True, capture_output=True, timeout=900,
     )
     return time.time() - t0
@@ -866,6 +896,75 @@ def phase_parity_step4(data: str):
         clean200x_cuda_s=_perf_seconds(f"{data}/{DEV}4", "Clean200x"),
         clean200x_cpu_s=_perf_seconds(f"{data}/cpu4", "Clean200x"),
         k3_launches=json.dumps(launches), identical=True)
+
+
+class Step5Watch:
+    """Wraps step 5 for one run: the blob counts of assemble_gaps2 and
+    the kernel launches inside add_new_stuff (the step's device work)."""
+
+    def __init__(self):
+        self.stats = {"blobs": 0, "solved": 0, "pieces": 0}
+        self.launches = {n: 0 for n in tdev.LAUNCHES}
+
+    def __enter__(self):
+        self._ag2, self._ans = step5_gaps.assemble_gaps2, step5_gaps.add_new_stuff
+
+        def ag2(*a, **kw):
+            return self._ag2(*a, stats=self.stats, **kw)
+
+        def ans(*a, **kw):
+            before = dict(tdev.LAUNCHES)
+            out = self._ans(*a, **kw)
+            self.launches = {n: tdev.LAUNCHES[n] - before[n] for n in before}
+            return out
+
+        step5_gaps.assemble_gaps2, step5_gaps.add_new_stuff = ag2, ans
+        return self
+
+    def __exit__(self, *exc):
+        step5_gaps.assemble_gaps2, step5_gaps.add_new_stuff = self._ag2, self._ans
+
+
+def phase_parity_step5(work: str):
+    """Steps 1-5 at K=200 on the repeat-rich 500 kb genome, cuda against
+    cpu under the default sort: every checkpoint identical, a blob
+    solved, a piece added and K2 launched inside step 5."""
+    data = f"{work}/rep500"
+    gen_s = synth(data, REPEAT["glen"], REPEAT["pairs"], REPEAT["seed"], REPEAT["extra"])
+    times, stats, splits = {}, {}, {}
+    os.environ["W2RAP_TIMELOG"] = "1"
+    for dev in (DEV, "cpu"):
+        sysinfo.timelog_reset()
+        tdev.reset_launches()
+        t0 = time.time()
+        with Step5Watch() as watch:
+            run_cli(data, f"{data}/{dev}", dev,
+                    ["-K", "200", "--dump_all", "--dump_perf"], to_step=5)
+        times[dev] = time.time() - t0
+        stats[dev] = dict(watch.stats)
+        splits[dev] = {k: v for k, v in _split().items() if k.startswith("step5")}
+        if dev == DEV:
+            step5_launches = watch.launches
+    diffs = same_outputs(f"{data}/{DEV}", f"{data}/cpu", SMALL_K + LARGE_K + CLEAN + FINAL)
+    if diffs:
+        fail(f"repeat-rich 500 kb steps 1-5: cuda and cpu outputs differ in {diffs}")
+    if stats[DEV] != stats["cpu"]:
+        fail(f"repeat-rich 500 kb: blob counts differ {stats}")
+    if stats[DEV]["solved"] <= 0 or stats[DEV]["pieces"] <= 0:
+        fail(f"repeat-rich 500 kb: step 5 solved no blob or added no piece {stats[DEV]}")
+    if step5_launches["collapse"] <= 0:
+        fail(f"repeat-rich 500 kb: K2 was not launched in step 5 {step5_launches}")
+    edges = [len(np.load(f"{data}/{DEV}/{name}")["inv"]) for name in (CLEAN[0], FINAL[0])]
+    say("parity_500kb_step5", K=200, sort="lax", synth_s=f"{gen_s:.1f}",
+        cuda_s=f"{times[DEV]:.2f}", cpu_s=f"{times['cpu']:.2f}",
+        blobs=stats[DEV]["blobs"], solved=stats[DEV]["solved"], pieces=stats[DEV]["pieces"],
+        edges_clean=edges[0], edges_final=edges[1],
+        assemble_gaps_cuda_s=_perf_seconds(f"{data}/{DEV}", "AssembleGaps"),
+        assemble_gaps_cpu_s=_perf_seconds(f"{data}/cpu", "AssembleGaps"),
+        step5_launches=json.dumps({n: v for n, v in step5_launches.items() if v}),
+        identical=True)
+    for dev in (DEV, "cpu"):
+        say("parity_500kb_split", device=dev, **splits[dev])
 
 
 def _split() -> dict:
@@ -972,6 +1071,41 @@ def phase_step4(data: str) -> tuple[dict, int]:
     return runs, rows["k2"]
 
 
+def phase_ecoli_gaps(work: str) -> dict:
+    """Steps 1-5 at E. coli scale with gaps, K=260, on the card; returns
+    the launches of the whole run."""
+    data = f"{work}/ecoli_gaps"
+    gen_s = synth(data, ECOLI_GAPS["glen"], ECOLI_GAPS["pairs"], ECOLI_GAPS["seed"],
+                  ECOLI_GAPS["extra"])
+    os.environ["W2RAP_TIMELOG"] = "1"
+    sysinfo.timelog_reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    tdev.reset_launches()
+    t0 = time.time()
+    with Step5Watch() as watch:
+        hbv, paths, _ = run_cli(data, f"{data}/out", DEV,
+                                ["-K", "260", "--dump_perf"], to_step=5)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(tdev.LAUNCHES)
+    validate.test_involution(hbv)
+    validate.validate_paths(hbv, paths)
+    if watch.stats["pieces"] > 0 and watch.launches["collapse"] <= 0:
+        fail(f"E. coli with gaps: step 5 added pieces but launched no K2 {watch.launches}")
+    with open(f"{data}/out/pe.perf") as f:
+        perf = " | ".join(x.strip() for x in f)
+    say("ecoli_gaps_step5", genome=ECOLI_GAPS["glen"], pairs=ECOLI_GAPS["pairs"], K=260,
+        synth_s=f"{gen_s:.1f}", wall_s=f"{wall:.2f}", edges=hbv.n_edges,
+        path_edges=len(paths.edges), **watch.stats,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=json.dumps({n: v for n, v in launches.items() if v}),
+        step5_launches=json.dumps({n: v for n, v in watch.launches.items() if v}))
+    say("ecoli_gaps_split", **{k: v for k, v in _split().items() if k.startswith("step5")})
+    say("ecoli_gaps_perf", perf=repr(perf))
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--work", default=None,
@@ -1022,6 +1156,9 @@ def main():
         phase_parity_step4(s200)
         say("phase4b", seconds=f"{time.time() - t0:.1f}")
         t0 = time.time()
+        phase_parity_step5(work)
+        say("phase4c", seconds=f"{time.time() - t0:.1f}")
+        t0 = time.time()
         data = f"{work}/ecoli"
         say("synth_ecoli", seconds=f"{synth(data, **ECOLI):.1f}")
         launches = phase_scale(data)
@@ -1029,6 +1166,9 @@ def main():
         t0 = time.time()
         runs, k2_rows = phase_step4(data)
         say("phase6", seconds=f"{time.time() - t0:.1f}")
+        t0 = time.time()
+        phase_ecoli_gaps(work)
+        say("phase7", seconds=f"{time.time() - t0:.1f}")
 
     # 3b (b): step 3's shape at K=260, 17 key words with ctx in the pad bits
     t0 = time.time()

@@ -86,25 +86,44 @@ def test_short_reads_give_empty_dict(rng):
     assert d.size == 0 and hist.sum() == 0
 
 
+@pytest.fixture(scope="module")
+def sort_cases():
+    return {}
+
+
+def _sort_case(cases, k):
+    """Reads for the sort back-end tests at k, and the JAX package's
+    count of them (its Pallas kernels in interpret mode), made once per
+    k for both back ends: 512 reads of 100 bases (101 - k windows a read:
+    20992 to 40960 rows), with errors and low-quality bases, no block
+    repeated past a radix slot.  The read length and chunk are those of
+    test_count_matches_jax_device_count, so at k=60 the JAX kmerize
+    program compiles once for both."""
+    if k not in cases:
+        rng = np.random.default_rng(1234 + k)
+        L = 100
+        genome = rng.integers(0, 4, size=3000).astype(np.uint8)
+        starts = rng.integers(0, len(genome) - L, size=512)
+        bases = np.stack([genome[s : s + L] for s in starts])
+        err = rng.random(bases.shape) < 0.004
+        bases[err] = (bases[err] + 1) % 4
+        lengths = np.full(len(starts), L, np.int32)
+        quals = np.full(bases.shape, 35, np.uint8)
+        quals[rng.random(bases.shape) < 0.002] = 2
+        jd, jhist = ke.count_kmers_device(bases, lengths, quals, k, min_freq=2,
+                                          chunk_reads=128, interpret=True)
+        cases[k] = (bases, lengths, quals, jd, jhist)
+    return cases[k]
+
+
 @pytest.mark.parametrize("k", [21, 31, 60])
-def test_radix_backend_matches_jax_lax(rng, monkeypatch, k):
+def test_radix_backend_matches_jax_lax(sort_cases, monkeypatch, k):
     """W2RAP_SORT=radix (K4 through its plain version, the tile shrunk as
     tests/test_kmer_engine.py:259-261 shrink JAX's) against the JAX
-    package's default lax path: dictionary and histogram.  Reads with
-    errors and low-quality bases, no block repeated past a slot."""
+    package's count: dictionary and histogram."""
     from w2rap_contigger_tpu_torch.ops import radix
 
-    L = k + 63  # 64 windows a read, 32768 rows
-    genome = rng.integers(0, 4, size=3000).astype(np.uint8)
-    starts = rng.integers(0, len(genome) - L, size=512)
-    bases = np.stack([genome[s : s + L] for s in starts])
-    err = rng.random(bases.shape) < 0.004
-    bases[err] = (bases[err] + 1) % 4
-    lengths = np.full(len(starts), L, np.int32)
-    quals = np.full(bases.shape, 35, np.uint8)
-    quals[rng.random(bases.shape) < 0.002] = 2
-    jd, jhist = ke.count_kmers_device(bases, lengths, quals, k, min_freq=2,
-                                      chunk_reads=256, interpret=True)
+    bases, lengths, quals, jd, jhist = _sort_case(sort_cases, k)
     # 4096-row tiles, 8 bins of ~512 rows: under the 896-row overflow
     # threshold (2048-row tiles have 4 bins of ~512, 1024-row tiles 2
     # bins: JAX's halving rule keeps slots at 1024 rows)
@@ -148,22 +167,12 @@ def test_radix_recounts_exactly_on_overflow(rng, monkeypatch):
 
 
 @pytest.mark.parametrize("k", [21, 31, 60])
-def test_pallas_backend_matches_jax(rng, monkeypatch, k):
+def test_pallas_backend_matches_jax(sort_cases, monkeypatch, k):
     """W2RAP_SORT=pallas (K3 through its plain version: W word planes +
-    the payload plane, padded to a power of two) against the JAX
+    the payload plane, padded to the next power of two) against the JAX
     package's count_kmers_device: dictionary and histogram.  k=21 and 31
     have one or two pad bits' worth of words (W=2), k=60 W=4."""
-    L = k + 31  # 32 windows a read, 8192 rows: 16384 after padding
-    genome = rng.integers(0, 4, size=1500).astype(np.uint8)
-    starts = rng.integers(0, len(genome) - L, size=256)
-    bases = np.stack([genome[s : s + L] for s in starts])
-    err = rng.random(bases.shape) < 0.004
-    bases[err] = (bases[err] + 1) % 4
-    lengths = rng.integers(k - 3, L + 1, size=len(starts)).astype(np.int32)
-    quals = np.full(bases.shape, 35, np.uint8)
-    quals[rng.random(bases.shape) < 0.005] = 2
-    jd, jhist = ke.count_kmers_device(bases, lengths, quals, k, min_freq=2,
-                                      chunk_reads=128, interpret=True)
+    bases, lengths, quals, jd, jhist = _sort_case(sort_cases, k)
     monkeypatch.setenv("W2RAP_SORT", "pallas")
     d, hist = tke.count_kmers_device(bases, lengths, quals, k, min_freq=2,
                                      chunk_reads=96, device="cpu")

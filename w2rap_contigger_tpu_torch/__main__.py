@@ -3,9 +3,9 @@ plus --device.
 
 Usage:
   python -m w2rap_contigger_tpu_torch -r r1.fastq,r2.fastq -o out_dir \\
-      --to_step 4 [-K 200|260|...] [-s min_size] [--device cuda|cpu] ...
+      --to_step 5 [-K 200|260|...] [-s min_size] [--device cuda|cpu] ...
 
-Steps 1-4 are ported; --to_step above 4 raises NotImplementedError.
+Steps 1-5 are ported; --to_step above 5 raises NotImplementedError.
 --device cuda (the default) needs a card and never falls back to the
 CPU; --device cpu runs the plain PyTorch versions of the kernels and
 exists for the tests.  W2RAP_SORT=lax|radix|pallas picks the counting
@@ -61,7 +61,7 @@ def parse_args(argv=None):
     ap.add_argument("--heuristics", default="",
                     help="NAME=value,... overrides (long_heuristics analogue)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="device of steps 2-3 (cpu: plain PyTorch, for tests)")
+                    help="device of steps 2, 3 and 5 (cpu: plain PyTorch, for tests)")
     return ap.parse_args(argv)
 
 
@@ -108,6 +108,7 @@ def main(argv=None):
         max_mem_gb=args.max_mem,
         disk_batches=args.disk_batches,
         tmp_dir=args.tmp_dir,
+        pair_sample=args.pair_sample,
         extend_paths=args.extend_paths,
         fill_join=args.fill_join,
         device=args.device,

@@ -16,6 +16,12 @@ after ranking (build.py:539-654, `_emit_cycles` :666) and
 copied with their imports redirected to jax-free modules.  The table is
 not padded (PyTorch has no compile cache to keep shapes stable for), so
 no padded-node remap is needed.
+
+A HostKmerDict (step 5's blob-local graphs, `host=True`) takes the host
+routes, copied from build.py:45-228: the C++ leaf native/graph_kernel.cc
+(`w2rap_prune_ctx`, `w2rap_build_links`, `w2rap_list_rank`), or its
+numpy mirror when the leaf does not build.  Blob graphs are a few
+thousand kmers: a device round trip per op would cost more than the work.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from ..device import timed
 from ..ops import bitkmer as bk
 from ..ops import context as kctx
+from ..ops.kmer_engine import HostKmerDict
 from ..ops import np_bitkmer as hbk
 from ..ops.lookup import n_iters_for, search
 from .hbv import HyperBasevector
@@ -57,11 +64,18 @@ def adjacencies_core(table_t, words, ctx, k: int, n_iters: int):
     return new_ctx
 
 
-def recompute_adjacencies(d):
-    """Replace d.ctx by its pruned form, on the dictionary's device."""
+def recompute_adjacencies(d, host: bool = False):
+    """Replace d.ctx by its pruned form, on the dictionary's device; a
+    host dict (or host=True) takes the host route (build.py:281-293)."""
     M = d.size
     if M == 0:
         return d
+    if host or isinstance(d, HostKmerDict):
+        _need_host(d)
+        lib = _native_graph_lib()
+        if lib is not None:
+            return _prune_ctx_native(lib, d)
+        return recompute_adjacencies_host(d)
     table_t = d.table_t()
     n_iters = n_iters_for(M)
     parts = [
@@ -154,6 +168,185 @@ def rank_iters_for(m: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# host routes for host dicts (build.py:45-228, copied)
+# ---------------------------------------------------------------------------
+
+
+def _need_host(d) -> None:
+    if not isinstance(d, HostKmerDict):
+        raise TypeError("the host route takes a HostKmerDict "
+                        "(count_kmers_flat(..., host=True))")
+
+
+def _native_graph_lib():
+    """C++ adjacency/link/list-rank leaf (native/graph_kernel.cc), or
+    None when it does not build."""
+    from .. import native
+
+    return native.load("w2rapgraph", ["graph_kernel.cc"], libs=["pthread"])
+
+
+def _graph_threads():
+    import os
+
+    return int(os.environ.get("OMP_NUM_THREADS", "0")) or (
+        os.cpu_count() or 1
+    )
+
+
+def _prune_ctx_native(lib, d):
+    import ctypes
+
+    words = np.ascontiguousarray(d.words, dtype=np.uint32)
+    ctx = np.ascontiguousarray(d.ctx, dtype=np.uint32)
+    out = np.empty(d.size, dtype=np.uint32)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.w2rap_prune_ctx(
+        words.ctypes.data_as(u32p), ctx.ctypes.data_as(u32p),
+        ctypes.c_int64(d.size), ctypes.c_int32(d.k),
+        ctypes.c_int32(words.shape[1]),
+        ctypes.c_int32(_graph_threads()),
+        out.ctypes.data_as(u32p),
+    )
+    d.ctx = out
+    return d
+
+
+def _build_links_native(lib, words, ctx, k):
+    import ctypes
+
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    ctx = np.ascontiguousarray(ctx, dtype=np.uint32)
+    m = words.shape[0]
+    out = np.empty(2 * m, dtype=np.int32)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.w2rap_build_links(
+        words.ctypes.data_as(u32p), ctx.ctypes.data_as(u32p),
+        ctypes.c_int64(m), ctypes.c_int32(k),
+        ctypes.c_int32(words.shape[1]),
+        ctypes.c_int32(_graph_threads()),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    return out
+
+
+def _rows_bytes(words):
+    """(M, W) uint32 rows -> (M,) big-endian byte keys whose bytewise
+    order equals word-wise unsigned lexicographic order."""
+    W = words.shape[1]
+    return np.ascontiguousarray(words.astype(">u4")).view(f"S{4 * W}").ravel()
+
+
+def _search_host(table_bytes, query_words):
+    """Host binary search of query rows in the sorted table.  Returns
+    (idx int32 clipped, found bool) like ops.lookup.search."""
+    qb = _rows_bytes(query_words)
+    M = len(table_bytes)
+    if M == 0:
+        return (np.zeros(len(qb), np.int32),
+                np.zeros(len(qb), bool))
+    pos = np.searchsorted(table_bytes, qb)
+    posc = np.minimum(pos, M - 1).astype(np.int64)
+    found = (pos < M) & (table_bytes[posc] == qb)
+    return posc.astype(np.int32), found
+
+
+def recompute_adjacencies_host(d):
+    """Numpy adjacency pruning of a host dict (the leaf's fallback)."""
+    words = d.words
+    ctx = d.ctx.astype(np.uint32)
+    k = d.k
+    tb = _rows_bytes(words)
+    new_ctx = np.zeros_like(ctx)
+    for code in range(4):
+        succ_c, _ = hbk.canonicalize(
+            hbk.to_successor(words, np.uint32(code), k), k
+        )
+        _, found = _search_host(tb, succ_c)
+        keep = (((ctx >> code) & 1).astype(bool)) & found
+        new_ctx |= keep.astype(np.uint32) << code
+        pred_c, _ = hbk.canonicalize(
+            hbk.to_predecessor(words, np.uint32(code), k), k
+        )
+        _, foundp = _search_host(tb, pred_c)
+        keepp = (((ctx >> (code + 4)) & 1).astype(bool)) & foundp
+        new_ctx |= keepp.astype(np.uint32) << (code + 4)
+    d.ctx = new_ctx
+    return d
+
+
+def _build_links_host(words, ctx, k: int):
+    """Numpy mirror of links_core over the full node space."""
+    M = words.shape[0]
+    tb = _rows_bytes(words)
+    pal = hbk.is_palindrome(words, k)
+    node_ids = np.arange(2 * M, dtype=np.int64)
+    kid_o = node_ids % M
+    src_rev = node_ids >= M
+    w_k = words[kid_o]
+    w_o = np.where(src_rev[:, None], hbk.rc_words(w_k, k), w_k)
+    ctx_o = np.where(src_rev, kctx.rc_context(ctx[kid_o]), ctx[kid_o])
+    pal_o = pal[kid_o]
+    succ_bits = kctx.succ_bits(ctx_o)
+    scount = kctx.popcount4(succ_bits)
+    scode = kctx.single_base(succ_bits)
+    succ_words = hbk.to_successor(w_o, scode.astype(np.uint32), k)
+    succ_canon, succ_isrev = hbk.canonicalize(succ_words, k)
+    vidx, found = _search_host(tb, succ_canon)
+    vidx = vidx.astype(np.int64)
+    v = vidx + succ_isrev.astype(np.int64) * M
+    vctx_can = ctx[vidx]
+    vctx = np.where(succ_isrev, kctx.rc_context(vctx_can), vctx_can)
+    vpred = kctx.popcount4(kctx.pred_bits(vctx))
+    vpal = pal[vidx]
+    hairpin = (vidx == kid_o) & (succ_isrev != src_rev)
+    ok = (
+        (scount == 1) & found & (~pal_o) & (~vpal) & (vpred == 1)
+        & (~hairpin)
+    )
+    return np.where(ok, v, -1).astype(np.int32)
+
+
+def _list_rank_native(lib, nxt):
+    """C++ sequential chain-walk list ranking: the same head/rank on
+    linear chains and the same on_cycle mask as pointer doubling."""
+    import ctypes
+
+    nxt = np.ascontiguousarray(nxt, dtype=np.int32)
+    n2 = len(nxt)
+    head = np.empty(n2, dtype=np.int32)
+    rank = np.empty(n2, dtype=np.int32)
+    cyc = np.empty(n2, dtype=np.uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.w2rap_list_rank(
+        nxt.ctypes.data_as(i32p), ctypes.c_int64(n2),
+        head.ctypes.data_as(i32p), rank.ctypes.data_as(i32p),
+        cyc.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+    )
+    return head, rank, cyc.astype(bool)
+
+
+def _list_rank_host(nxt, n_iters: int):
+    """Numpy pointer-doubling list ranking (mirror of list_rank)."""
+    N2 = len(nxt)
+    M = N2 // 2
+    n = np.arange(N2, dtype=np.int32)
+    rc_n = np.where(n < M, n + M, n - M)
+    nxt_rc = nxt[rc_n].astype(np.int32)
+    prev = np.where(
+        nxt_rc >= 0, np.where(nxt_rc < M, nxt_rc + M, nxt_rc - M),
+        np.int32(-1),
+    )
+    ptr = np.where(prev >= 0, prev, n).astype(np.int32)
+    dist = (prev >= 0).astype(np.int32)
+    for _ in range(n_iters):
+        dist = dist + dist[ptr]
+        ptr = ptr[ptr]
+    on_cycle = prev[ptr] >= 0
+    return ptr.astype(np.int32), dist.astype(np.int32), on_cycle
+
+
+# ---------------------------------------------------------------------------
 # host assembly (numpy, copied from the JAX package's graph/build.py)
 # ---------------------------------------------------------------------------
 
@@ -165,33 +358,49 @@ def _oriented_kmer_words(words, rcw, node_ids, M):
     return np.where(ori[:, None], rcw[kid], words[kid])
 
 
-def build_unitigs(d, span: str = "step2.unitigs"):
+def build_unitigs(d, span: str = "step2.unitigs", host: bool = False):
     """Canonical unitig edge set from the dictionary.
 
     Returns (edge_bases flat uint8, edge_start (E+1) int64) and fills the
-    KDef planes d.edge_id / d.edge_offset / d.edge_rc (host numpy) and
-    d.kdef (their device copies, for pathing).  The device part (links,
-    list ranking, download) is timed as `<span>.device`.
+    KDef planes d.edge_id / d.edge_offset / d.edge_rc (host numpy) and,
+    for a device dict, d.kdef (their device copies, for pathing).  The
+    device part (links, list ranking, download) is timed as
+    `<span>.device`.  A host dict (or host=True) builds its links and
+    ranks on the host (build.py:452-476).
     """
     M = d.size
     k = d.k
-    dev = d.device
+    on_host = host or isinstance(d, HostKmerDict)
+    if on_host:
+        _need_host(d)
     if M == 0:
         d.edge_id = np.zeros(0, np.int32)
         d.edge_offset = np.zeros(0, np.int32)
         d.edge_rc = np.zeros(0, bool)
-        d.kdef = _kdef_to_device(d, dev)
+        if not on_host:
+            d.kdef = _kdef_to_device(d, d.device)
         return np.zeros(0, np.uint8), np.zeros(1, np.int64)
 
-    with timed(f"{span}.device", dev):
-        nxt_d = build_links(d.words, d.ctx, k, n_iters_for(M))
-        head_d, rank_d, cyc_d = list_rank(nxt_d, rank_iters_for(M))
-        nxt = nxt_d.cpu().numpy().astype(np.int32)
-        head = head_d.cpu().numpy().astype(np.int32)
-        rank = rank_d.cpu().numpy().astype(np.int32)
-        on_cycle = cyc_d.cpu().numpy()
-
-    words = d.host("words")
+    if on_host:
+        words = d.words
+        ctx = d.ctx.astype(np.uint32)
+        lib = _native_graph_lib()
+        if lib is not None:
+            nxt = _build_links_native(lib, words, ctx, k)
+            head, rank, on_cycle = _list_rank_native(lib, nxt)
+        else:
+            nxt = _build_links_host(words, ctx, k)
+            head, rank, on_cycle = _list_rank_host(nxt, rank_iters_for(M))
+    else:
+        dev = d.device
+        with timed(f"{span}.device", dev):
+            nxt_d = build_links(d.words, d.ctx, k, n_iters_for(M))
+            head_d, rank_d, cyc_d = list_rank(nxt_d, rank_iters_for(M))
+            nxt = nxt_d.cpu().numpy().astype(np.int32)
+            head = head_d.cpu().numpy().astype(np.int32)
+            rank = rank_d.cpu().numpy().astype(np.int32)
+            on_cycle = cyc_d.cpu().numpy()
+        words = d.host("words")
     rcw = hbk.rc_words(words, k)
     kmer_last = hbk.last_base(words, k).astype(np.uint8)  # (M,)
     rc_last = hbk.last_base(rcw, k).astype(np.uint8)
@@ -294,7 +503,8 @@ def build_unitigs(d, span: str = "step2.unitigs"):
     d.edge_id = edge_id
     d.edge_offset = edge_offset
     d.edge_rc = edge_rc
-    d.kdef = _kdef_to_device(d, dev)
+    if not on_host:
+        d.kdef = _kdef_to_device(d, d.device)
     return edge_bases, edge_start
 
 

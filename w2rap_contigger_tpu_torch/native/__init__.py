@@ -2,10 +2,14 @@
 
 Copied from w2rap_contigger_tpu/native/__init__.py with the leaves the
 port calls (`pack_kernel.cc`: 2-bit packing + usable read lengths;
-`fastq_loader.cc`: FASTQ parsing).  Each module builds on demand into
-`native/build/` (listed in .gitignore), never next to the sources, and
-is rebuilt when a source is newer than its library.  Every entry point
-has a numpy fallback, so the port runs without a toolchain.
+`fastq_loader.cc`: FASTQ parsing; and for step 5's blob-local graphs
+`count_kernel.cc`: kmer counting, `graph_kernel.cc`: adjacency pruning,
+unitig links and list ranking, `path_kernel.cc`: read and flat-sequence
+pathing).  Each module builds on demand into `native/build/` (listed in
+.gitignore), never next to the sources, and is rebuilt when a source is
+newer than its library.  Packing, FASTQ parsing and the graph leaf have
+numpy fallbacks; the blob count and the read pather do not, and their
+callers raise when `load` returns None.
 """
 
 from __future__ import annotations

@@ -22,6 +22,13 @@ The chain, per the reference's createDictOMPRecursive
         --K2 collapse--> per-tile compacted (kmer, ctx, cnt) rows
         --global compaction (torch gather, _compact_planes_dev :1293)-->
         sorted dictionary + 101-bin histogram (low bins from K2, :1399)
+
+Step 5's blob-local graphs count on the host instead (`count_kmers_flat
+(..., host=True)`, :663-713 and :836-885): the C++ leaf
+`native/count_kernel.cc` kmerizes, sorts and collapses segment batches,
+and `host_merge_sorted` merges the sorted runs into a `HostKmerDict` of
+numpy arrays.  JAX's fallback there is its device pipeline; the port has
+none on the host, so a leaf that cannot build raises.
 """
 
 from __future__ import annotations
@@ -94,6 +101,27 @@ class KmerDict:
             dt = np.int32 if name == "counts" else np.uint32
             self._host[name] = src.cpu().numpy().astype(dt)
         return self._host[name]
+
+
+class HostKmerDict:
+    """Sorted canonical kmer dictionary in host numpy arrays (the JAX
+    package's KmerDict with dev None, kmer_engine.py:275-357): words (m, W)
+    uint32, counts (m,) int32, ctx (m,) uint32, and the KDef planes
+    edge_id / edge_offset / edge_rc once graph.build.build_unitigs ran.
+    The graph and pathing functions take their host routes for it."""
+
+    def __init__(self, words, counts, ctx, k: int):
+        self.words = words
+        self.counts = counts
+        self.ctx = ctx
+        self.k = k
+        self.edge_id = None
+        self.edge_offset = None
+        self.edge_rc = None
+
+    @property
+    def size(self) -> int:
+        return self.words.shape[0]
 
 
 def empty_dict(k: int, device) -> KmerDict:
@@ -432,20 +460,35 @@ def kmerize_flat(packed, valid, has_pred, has_succ, pred_code, succ_code, k: int
 
 def count_kmers_flat(flat_bases, seg_offsets, k: int, min_freq: int = 1,
                      chunk_pos: int | None = None, device="cuda",
-                     span: str = "step3.count"):
+                     span: str = "step3.count", host: bool = False):
     """Count canonical kmers over concatenated sequences (:663-833, its
     device pipeline branch :783-824); returns the KmerDict.
 
     flat_bases (T,) uint8 codes of all sequences back to back;
     seg_offsets (S+1,) int64 bounds.  No kmer spans two sequences; a
-    kmer's context bases stop at its sequence's ends."""
+    kmer's context bases stop at its sequence's ends.
+
+    host=True counts with the native C++ leaf and returns a HostKmerDict
+    (step 5's blob-local graphs; `device` is not used)."""
+    W = bk.nwords(k)
+    if host:
+        if len(flat_bases) < k:
+            return HostKmerDict(np.zeros((0, W), dtype=np.uint32),
+                                np.zeros(0, np.int32), np.zeros(0, np.uint32), k)
+        lib = _native_count_lib()
+        if lib is None:
+            raise RuntimeError(
+                "count_kmers_flat(host=True) needs the native leaf "
+                "native/count_kernel.cc, which did not build (g++ missing?); "
+                "the port has no other host count"
+            )
+        return _count_kmers_flat_native(lib, flat_bases, seg_offsets, k, W, min_freq)
     dev = resolve_device(device)
     if chunk_pos is None:
         chunk_pos = (1 << 21) if k <= 64 else (1 << 19)
     flat_bases = np.asarray(flat_bases, dtype=np.uint8)
     seg_offsets = np.asarray(seg_offsets, dtype=np.int64)
     T = len(flat_bases)
-    W = bk.nwords(k)
     if T < k:
         return empty_dict(k, dev)
     backend = sort_backend()
@@ -481,3 +524,131 @@ def count_kmers_flat(flat_bases, seg_offsets, k: int, min_freq: int = 1,
             stream.put(words, ctx)
     d, _hist = count_epilogue(stream, k, min_freq, span)
     return d
+
+
+# ---------------------------------------------------------------------------
+# host counting (step 5's blob-local graphs; kmer_engine.py:381-447,
+# :459-475, :836-885, copied)
+# ---------------------------------------------------------------------------
+
+
+def _vview(words):
+    """(M, W) uint32 -> (M,) big-endian void view (memcmp == lexicographic)."""
+    be = np.ascontiguousarray(words.astype(">u4"))
+    return be.view(f"V{4 * words.shape[1]}").reshape(-1)
+
+
+def host_merge_sorted(a, b):
+    """Merge two sorted-unique (words, ctx, cnt) runs on host (numpy).
+    Counts saturate at 255 like the reference's combine_Entries
+    (BuildReadQGraph.cc:948)."""
+    wA, cA, nA = a
+    wB, cB, nB = b
+    if wA.shape[0] == 0:
+        return wB, cB, nB
+    if wB.shape[0] == 0:
+        return wA, cA, nA
+    vA = _vview(wA)
+    vB = _vview(wB)
+    pos = np.searchsorted(vA, vB)
+    posc = np.minimum(pos, len(vA) - 1)
+    eq = (pos < len(vA)) & (vA[posc] == vB)
+
+    ctxA = cA.copy()
+    cntA = nA.copy()
+    hit = posc[eq]
+    ctxA[hit] |= cB[eq]
+    cntA[hit] = np.minimum(cntA[hit].astype(np.int64) + nB[eq], 255).astype(
+        cntA.dtype
+    )
+
+    unm = ~eq
+    n_un = int(unm.sum())
+    if n_un == 0:
+        return wA, ctxA, cntA
+    posu = pos[unm]  # nondecreasing
+    a_dst = np.arange(len(vA)) + np.searchsorted(
+        posu, np.arange(len(vA)), side="right"
+    )
+    b_dst = posu + np.arange(n_un)
+    n_out = len(vA) + n_un
+    wO = np.empty((n_out, wA.shape[1]), dtype=np.uint32)
+    cO = np.empty(n_out, dtype=cA.dtype)
+    nO = np.empty(n_out, dtype=nA.dtype)
+    wO[a_dst] = wA
+    cO[a_dst] = ctxA
+    nO[a_dst] = cntA
+    wO[b_dst] = wB[unm]
+    cO[b_dst] = cB[unm]
+    nO[b_dst] = nB[unm]
+    return wO, cO, nO
+
+
+def _host_merge_all(runs):
+    """Balanced pairwise host merge of sorted-unique runs."""
+    while len(runs) > 1:
+        nxt = []
+        for i in range(0, len(runs) - 1, 2):
+            nxt.append(host_merge_sorted(runs[i], runs[i + 1]))
+        if len(runs) % 2:
+            nxt.append(runs[-1])
+        runs = nxt
+    return runs[0]
+
+
+def _native_count_lib():
+    """The C++ leaf counter (native/count_kernel.cc), or None when it
+    does not build."""
+    from .. import native
+
+    return native.load("w2rapcount", ["count_kernel.cc"], libs=["pthread"])
+
+
+def _count_kmers_flat_native(lib, flat_bases, seg_offsets, k, W, min_freq):
+    """C++ leaf counting over segment batches + the host merge; kmers
+    never span segments, so batching by whole segments is exact."""
+    import ctypes
+
+    flat = np.ascontiguousarray(flat_bases, dtype=np.uint8)
+    seg = np.ascontiguousarray(seg_offsets, dtype=np.int64)
+    seg_len = np.diff(seg)
+    pos = np.maximum(seg_len - k + 1, 0).astype(np.int64)
+    S = len(seg) - 1
+    MAXP = 4 << 20
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.w2rap_count_leaf_flat.restype = ctypes.c_int64
+    runs = []
+    i = 0
+    while i < S:
+        j = i
+        tot = 0
+        while j < S and (tot == 0 or tot + pos[j] <= MAXP):
+            tot += int(pos[j])
+            j += 1
+        if tot == 0:
+            i = j
+            continue
+        base = int(seg[i])
+        lseg = (seg[i : j + 1] - base).astype(np.int64)
+        sub = np.ascontiguousarray(flat[base : int(seg[j])])
+        cap = tot
+        out_w = np.empty((cap, W), dtype=np.uint32)
+        out_x = np.empty(cap, dtype=np.uint8)
+        out_c = np.empty(cap, dtype=np.uint8)
+        m = lib.w2rap_count_leaf_flat(
+            sub.ctypes.data_as(u8p),
+            lseg.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            ctypes.c_int64(j - i), ctypes.c_int32(k), ctypes.c_int32(W),
+            out_w.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            out_x.ctypes.data_as(u8p), out_c.ctypes.data_as(u8p),
+        )
+        runs.append((out_w[:m].copy(), out_x[:m].copy(), out_c[:m].copy()))
+        i = j
+    if not runs:
+        empty = np.zeros((0, W), dtype=np.uint32)
+        return HostKmerDict(empty, np.zeros(0, np.int32), np.zeros(0, np.uint32), k)
+    words, ctx, cnt = _host_merge_all(runs)
+    keep = cnt >= min_freq
+    return HostKmerDict(
+        words[keep], cnt[keep].astype(np.int32), ctx[keep].astype(np.uint32), k
+    )

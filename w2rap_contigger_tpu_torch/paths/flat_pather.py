@@ -10,8 +10,12 @@ Repath.cc:140-196).
 `lookup_flat_core` is the torch form of `_lookup_flat_core` (:23-40): the
 port's batched binary search (`ops.lookup.search`) on the dictionary's
 device, chunk by chunk as the device route (:164-212) runs it.  The
-segment decode (:214-251) is host numpy, copied.  `mesh` and the native
-C++ route are not ported.
+segment decode (:214-251) is host numpy, copied.  `mesh` is not ported.
+
+A HostKmerDict (or host=True; step 5's blob-local graphs) takes the host
+route (:48-80, :139-160, copied): one pass of the C++ leaf
+native/path_kernel.cc (`w2rap_path_flat`), or the numpy lookup when the
+leaf does not build.
 """
 
 from __future__ import annotations
@@ -21,8 +25,11 @@ import torch
 
 from ..device import timed
 from ..ops import bitkmer as bk
+from ..ops import np_bitkmer as hbk
+from ..ops.kmer_engine import HostKmerDict
 from ..ops.kmerize import pack_rows_host
 from ..ops.lookup import n_iters_for, search
+from .pather import _native_path_lib
 
 
 def lookup_flat_core(packed, table_t, kdef_edge, kdef_off, kdef_rc,
@@ -41,15 +48,82 @@ def lookup_flat_core(packed, table_t, kdef_edge, kdef_off, kdef_rc,
     return torch.where(found, hbv_e, -1), off
 
 
+def _path_flat_native_fill(lib, flat_bases, seg_offsets, d, hbv,
+                           fwd_xlat, rev_xlat, k, all_e, all_o):
+    """One C++ pass over all segments filling the (n_pos,) oriented
+    edge/offset planes (native/path_kernel.cc:w2rap_path_flat)."""
+    import ctypes
+    import os
+
+    flat = np.ascontiguousarray(flat_bases, dtype=np.uint8)
+    seg = np.ascontiguousarray(seg_offsets, dtype=np.int64)
+    words = np.ascontiguousarray(d.words, dtype=np.uint32)
+    eid = np.ascontiguousarray(d.edge_id, dtype=np.int32)
+    eoff = np.ascontiguousarray(d.edge_offset, dtype=np.int32)
+    erc = np.ascontiguousarray(d.edge_rc, dtype=np.uint8)
+    fx = np.ascontiguousarray(fwd_xlat, dtype=np.int32)
+    rx = np.ascontiguousarray(rev_xlat, dtype=np.int32)
+    ekm = np.ascontiguousarray(
+        (np.diff(hbv.edge_start) - k + 1)[fwd_xlat].astype(np.int32)
+    )
+    nt = int(os.environ.get("OMP_NUM_THREADS", "0")) or (os.cpu_count() or 1)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.w2rap_path_flat.restype = ctypes.c_int64
+    lib.w2rap_path_flat(
+        flat.ctypes.data_as(u8p), seg.ctypes.data_as(i64p),
+        ctypes.c_int64(len(seg) - 1), ctypes.c_int32(k),
+        ctypes.c_int32(words.shape[1] if words.ndim == 2 else 1),
+        words.ctypes.data_as(u32p), ctypes.c_int64(d.size),
+        eid.ctypes.data_as(i32p), eoff.ctypes.data_as(i32p),
+        erc.ctypes.data_as(u8p), fx.ctypes.data_as(i32p),
+        rx.ctypes.data_as(i32p), ekm.ctypes.data_as(i32p),
+        ctypes.c_int64(len(ekm)), ctypes.c_int32(nt),
+        all_e.ctypes.data_as(i32p), all_o.ctypes.data_as(i32p),
+    )
+
+
+def _path_flat_numpy_fill(flat_bases, d, hbv, fwd_xlat, rev_xlat, k, all_e, all_o):
+    """The numpy lookup of every position (flat_pather.py:139-160)."""
+    from ..graph.build import _rows_bytes, _search_host
+
+    n_pos = len(all_e)
+    tb = _rows_bytes(d.words)
+    kd_e = np.asarray(d.edge_id)
+    kd_o = np.asarray(d.edge_offset)
+    kd_r = np.asarray(d.edge_rc)
+    fxh = np.asarray(fwd_xlat)
+    rxh = np.asarray(rev_xlat)
+    ekm_h = (np.diff(hbv.edge_start) - k + 1)[fwd_xlat].astype(np.int32)
+    win = np.lib.stride_tricks.sliding_window_view(
+        np.asarray(flat_bases), k
+    )[:n_pos]
+    words = hbk.pack_codes(np.ascontiguousarray(win), k)
+    canon, is_rev = hbk.canonicalize(words, k)
+    idx, found = _search_host(tb, canon)
+    e0 = kd_e[idx]
+    rc = is_rev ^ kd_r[idx]
+    he = np.where(rc, rxh[e0], fxh[e0]).astype(np.int32)
+    ekm_e = ekm_h[e0].astype(np.int32)
+    all_o[:] = np.where(
+        rc, ekm_e - 1 - kd_o[idx], kd_o[idx]
+    ).astype(np.int32)
+    all_e[:] = np.where(found, he, -1).astype(np.int32)
+
+
 def path_flat_sequences(flat_bases, seg_offsets, d, hbv, fwd_xlat, rev_xlat,
-                        chunk_pos: int | None = None, span: str = "step3.pathing"):
+                        chunk_pos: int | None = None, span: str = "step3.pathing",
+                        host: bool = False):
     """Walk each segment through the graph.
 
     Returns (paths: list of np.int32 arrays, starts (S,) int32, stops (S,)
     int32): starts = base offset of the segment on its first edge, stops =
     bases of the last edge after the segment's final kmer (Repath.cc
     starts/stops semantics, Repath.cc:196-200).  Segments shorter than k
-    or with a kmer missing from the dictionary get empty paths.
+    or with a kmer missing from the dictionary get empty paths.  A host
+    dict (or host=True) is looked up on the host.
     """
     k = d.k
     if chunk_pos is None:
@@ -59,7 +133,18 @@ def path_flat_sequences(flat_bases, seg_offsets, d, hbv, fwd_xlat, rev_xlat,
     n_pos = max(T - k + 1, 0)
     all_e = np.full(n_pos, -1, dtype=np.int32)
     all_o = np.zeros(n_pos, dtype=np.int32)
-    if n_pos > 0 and d.size > 0:
+    if host or isinstance(d, HostKmerDict):
+        if not isinstance(d, HostKmerDict):
+            raise TypeError("the host route takes a HostKmerDict")
+        if n_pos > 0:
+            lib = _native_path_lib()
+            if lib is not None:
+                _path_flat_native_fill(lib, flat_bases, seg_offsets, d, hbv,
+                                       fwd_xlat, rev_xlat, k, all_e, all_o)
+            else:
+                _path_flat_numpy_fill(flat_bases, d, hbv, fwd_xlat, rev_xlat,
+                                      k, all_e, all_o)
+    elif n_pos > 0 and d.size > 0:
         dev = d.device
         table_t = d.table_t()
         n_iters = n_iters_for(d.size)

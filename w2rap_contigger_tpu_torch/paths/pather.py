@@ -10,6 +10,12 @@ in which a read has more than RUN_SLOTS runs (:515-529).  The numpy
 decode (`_decode_chunk`, `_decode_compact`, `_parts_to_paths`,
 `edge_tail_words`, :159-340) is copied with its imports redirected.
 
+A HostKmerDict (step 5's blob-local graphs) is pathed by the C++ leaf
+native/path_kernel.cc (`_path_reads_native`, pather.py:342-417), which
+fills the same compact run-start slots for the same numpy decode.  The
+JAX package falls back to its device route when the leaf does not build;
+the port raises.
+
 Replaces the reference's seed-and-extend BRQ_Pather + path_reads_OMP
 (src/paths/long/BuildReadQGraph.cc:494-560,829-940): PathParts are the
 maximal runs of consecutive (edge, offset) hits of a read's kmers.
@@ -23,6 +29,7 @@ import torch
 from ..device import timed
 from ..ops import bitkmer as bk
 from ..ops import np_bitkmer as hbk
+from ..ops.kmer_engine import HostKmerDict
 from ..ops.kmerize import pack_rows_host
 from ..ops.lookup import n_iters_for, search
 from .read_paths import ReadPathVec
@@ -257,12 +264,80 @@ def _np32(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().astype(np.int32)
 
 
+def _native_path_lib():
+    """The C++ pathing leaf (native/path_kernel.cc), or None when it does
+    not build."""
+    from .. import native
+
+    return native.load("w2rappath", ["path_kernel.cc"], libs=["pthread"])
+
+
+def _path_reads_native(lib, reads, d, hbv, fwd_xlat, rev_xlat, k,
+                       tail_words) -> ReadPathVec:
+    """One C++ pass over all reads producing the same compact run-start
+    slots as lookup_compact; decode is the shared numpy tail, so paths
+    are bit-identical to the device route."""
+    import ctypes
+    import os
+
+    n = reads.n_reads
+    L = reads.max_len
+    bases = np.ascontiguousarray(reads.bases, dtype=np.uint8)
+    lengths = np.ascontiguousarray(reads.lengths, dtype=np.int32)
+    words = np.ascontiguousarray(d.words, dtype=np.uint32)
+    m = d.size
+    eid = np.ascontiguousarray(d.edge_id, dtype=np.int32)
+    eoff = np.ascontiguousarray(d.edge_offset, dtype=np.int32)
+    erc = np.ascontiguousarray(d.edge_rc, dtype=np.uint8)
+    fx = np.ascontiguousarray(fwd_xlat, dtype=np.int32)
+    rx = np.ascontiguousarray(rev_xlat, dtype=np.int32)
+    ekm = np.ascontiguousarray(
+        (np.diff(hbv.edge_start) - k + 1)[fwd_xlat].astype(np.int32)
+    )
+    nt = int(os.environ.get("OMP_NUM_THREADS", "0")) or (os.cpu_count() or 1)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.w2rap_path_leaf.restype = ctypes.c_int32
+
+    S = RUN_SLOTS
+    while True:
+        pos_s = np.zeros((n, S), dtype=np.int32)
+        e_s = np.zeros((n, S), dtype=np.int32)
+        off_s = np.zeros((n, S), dtype=np.int32)
+        ekm_s = np.zeros((n, S), dtype=np.int32)
+        nruns = np.zeros(n, dtype=np.int32)
+        mx = lib.w2rap_path_leaf(
+            bases.ctypes.data_as(u8p), lengths.ctypes.data_as(i32p),
+            ctypes.c_int64(n), ctypes.c_int64(L), ctypes.c_int32(k),
+            ctypes.c_int32(words.shape[1] if words.ndim == 2 else 1),
+            words.ctypes.data_as(u32p), ctypes.c_int64(m),
+            eid.ctypes.data_as(i32p), eoff.ctypes.data_as(i32p),
+            erc.ctypes.data_as(u8p), fx.ctypes.data_as(i32p),
+            rx.ctypes.data_as(i32p), ekm.ctypes.data_as(i32p),
+            ctypes.c_int64(len(ekm)), ctypes.c_int32(S),
+            ctypes.c_int32(nt),
+            pos_s.ctypes.data_as(i32p), e_s.ctypes.data_as(i32p),
+            off_s.ctypes.data_as(i32p), ekm_s.ctypes.data_as(i32p),
+            nruns.ctypes.data_as(i32p),
+        )
+        if mx <= S:
+            break
+        # rare: a read overflowed the slots; re-run with room for it
+        S = 8 * ((int(mx) + 7) // 8)
+    pe, offs, so = _decode_compact(
+        pos_s, e_s, off_s, ekm_s, nruns, lengths, k, tail_words
+    )
+    return ReadPathVec(offs, pe.astype(np.int32), so)
+
+
 def path_reads(reads, d, hbv, fwd_xlat, rev_xlat,
                chunk_reads: int = 262144) -> ReadPathVec:
-    """Path every read through the HBV on the dictionary's device.
+    """Path every read through the HBV on the dictionary's device, or
+    with the native leaf for a host dict (pather.py:450-458).
 
-    reads: core.reads.ReadSet; d: KmerDict after build_unitigs; hbv and
-    xlat from graph.build.build_hbv_from_edges.
+    reads: core.reads.ReadSet; d: KmerDict or HostKmerDict after
+    build_unitigs; hbv and xlat from graph.build.build_hbv_from_edges.
     """
     k = d.k
     n = reads.n_reads
@@ -274,6 +349,15 @@ def path_reads(reads, d, hbv, fwd_xlat, rev_xlat,
             np.zeros(0, dtype=np.int32),
             np.zeros(n, dtype=np.int32),
         )
+    if isinstance(d, HostKmerDict):
+        lib = _native_path_lib()
+        if lib is None:
+            raise RuntimeError(
+                "host read pathing needs the native leaf native/path_kernel.cc, "
+                "which did not build (g++ missing?); the port has no other"
+            )
+        return _path_reads_native(lib, reads, d, hbv, fwd_xlat, rev_xlat, k,
+                                  edge_tail_words(hbv))
     dev = d.device
     n_iters = n_iters_for(d.size)
     table_t = d.table_t()

@@ -1,13 +1,16 @@
-"""Pipeline driver of the port: steps 1-4 with the JAX package's
+"""Pipeline driver of the port: steps 1-5 with the JAX package's
 checkpoints.
 
-Counterpart of w2rap_contigger_tpu/pipeline/driver.py:52-173.  Step 1
+Counterpart of w2rap_contigger_tpu/pipeline/driver.py:52-196.  Step 1
 is host `extract_reads`; steps 2 and 3 run on `device` through this
-package; step 4 (Clean200x) is host numpy, as in the JAX package.  Later
-steps are not ported yet and raise.  Outputs have the JAX package's names
-and formats: frag_reads_orig.npz, small_K.freqs, <p>.small_K.hbv.npz /
+package; step 4 (Clean200x) is host numpy, as in the JAX package; step 5
+(AssembleGaps2 + AddNewStuff + PartnersToEnds) runs its blobs on the
+host with pre-correction and AddNewStuff's graph on `device`.  Steps 6-7
+are not ported yet and raise.  Outputs have the JAX package's names and
+formats: frag_reads_orig.npz, small_K.freqs, <p>.small_K.hbv.npz /
 .paths.npz (step 2), <p>.large_K.hbv.npz / .paths.npz (step 3),
-<p>.large_K.clean.hbv.npz / .paths.npz (step 4) and <p>.perf.
+<p>.large_K.clean.hbv.npz / .paths.npz (step 4), <p>.large_K.final.hbv.npz
+/ .paths.npz (step 5) and <p>.perf.
 """
 
 from __future__ import annotations
@@ -17,13 +20,13 @@ import time
 
 from ..core.io_fastq import extract_reads
 from ..core.reads import ReadSet
-from ..device import resolve_device
+from ..device import resolve_device, timed
 from ..graph.hbv import HyperBasevector
 from ..paths.read_paths import ReadPathVec
 from ..utils import sysinfo
-from . import step2_small_k, step3_repath, step4_clean
+from . import step2_small_k, step3_repath, step4_clean, step5_gaps
 
-LAST_PORTED_STEP = 4
+LAST_PORTED_STEP = 5
 
 
 class PerfLog:
@@ -55,7 +58,7 @@ def run_pipeline(
     prefix: str = "pe",
     large_k: int = 200,
     from_step: int = 1,
-    to_step: int = 4,
+    to_step: int = 5,
     min_freq: int = 4,
     min_qual: int = 7,
     min_size: int = 0,
@@ -66,13 +69,15 @@ def run_pipeline(
     max_mem_gb: int = 10000,
     disk_batches: int = 0,
     tmp_dir: str | None = None,
+    pair_sample: int = 200,
     extend_paths: bool = False,
     fill_join: bool = False,
     device="cuda",
 ):
-    """Run steps from_step..to_step (1..4) on `device`; returns (hbv,
+    """Run steps from_step..to_step (1..5) on `device`; returns (hbv,
     paths, dict): the graph and paths of the last step that ran, and the
-    last kmer dictionary counted (Nones where no step made them)."""
+    last kmer dictionary counted by steps 2-3 (Nones where no step made
+    them)."""
     if to_step > LAST_PORTED_STEP or from_step > LAST_PORTED_STEP:
         raise NotImplementedError(
             f"steps {LAST_PORTED_STEP + 1}-7 are not ported yet "
@@ -89,7 +94,7 @@ def run_pipeline(
     hbv = paths = d = None
 
     def get_reads():
-        # steps 2 and 4 read the reads; a later --from_step loads them
+        # steps 2, 4 and 5 read the reads; a later --from_step loads them
         nonlocal reads
         if reads is None:
             reads = ReadSet.load(f"{out_dir}/frag_reads_orig.npz")
@@ -145,6 +150,31 @@ def run_pipeline(
             hbv.save(f"{p}.large_K.clean.hbv.npz")
             paths.save(f"{p}.large_K.clean.paths.npz")
         perf.checkpoint("Clean200x")
+    elif from_step == 5:
+        hbv = HyperBasevector.load(f"{p}.large_K.clean.hbv.npz")
+        paths = ReadPathVec.load(f"{p}.large_K.clean.paths.npz")
+
+    if from_step <= 5 <= to_step:
+        # AssembleGaps2 + AddNewStuff + PartnersToEnds
+        # (w2rap-contigger.cc:424-459)
+        from ..paths.partners import partners_to_ends
+
+        new_stuff = step5_gaps.assemble_gaps2(
+            hbv, paths, get_reads(), pair_sample=pair_sample,
+            threads=threads, device=dev,
+        )
+        if new_stuff:
+            with timed("step5.add_new_stuff", dev):
+                hbv, paths = step5_gaps.add_new_stuff(
+                    hbv, paths, get_reads(), new_stuff, chunk_reads=chunk_reads,
+                    device=dev,
+                )
+        with timed("step5.partners", dev):
+            paths, _ = partners_to_ends(hbv, paths, get_reads())
+        if dump_all or to_step == 5:
+            hbv.save(f"{p}.large_K.final.hbv.npz")
+            paths.save(f"{p}.large_K.final.paths.npz")
+        perf.checkpoint("AssembleGaps")
 
     if sysinfo.timelog_enabled():
         rep = sysinfo.timelog_report()
