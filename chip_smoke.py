@@ -55,14 +55,17 @@ exits non-zero and prints no result line:
    large_K.clean checkpoints must be identical, every K3 kernel launched,
    and Clean200x must delete edges (the kept sequencing errors branch the
    graph); its seconds printed;
-4c. steps 1-5 (K=200) on the repeat-rich 500 kb genome of
+4c. steps 1-7 (K=200) on the repeat-rich 500 kb genome of
    scripts/parity_repeat.sh (12 copies of a 3 kb repeat, 4 coverage
    dips, 60k PE250 pairs, seed 7) under the default sort, --device cuda
-   against --device cpu: every checkpoint through large_K.final must be
-   identical, step 5 must solve a blob and add a piece, and K2 (collapse)
-   must launch inside step 5 (AddNewStuff's count); the blob and piece
-   counts, AssembleGaps seconds and the step-5 split on both devices
-   printed;
+   against --device cpu: every checkpoint through large_K.final and
+   every file of steps 6-7 (pe.contig.*, a.lines.fasta, stats,
+   a.fin.frags.dist, the a_contigs and pe_assembly GFA files) must be
+   identical, step 5 must solve a blob and add a piece, K2 (collapse)
+   must launch inside step 5 (AddNewStuff's count) and no kernel in
+   steps 6-7; the blob and piece counts, the AssembleGaps, Simplify and
+   MakeGaps+FinalFiles seconds, the step 5-7 split on both devices, the
+   line count and N50 printed;
 5. step 2 at E. coli scale (4.6 Mbp, 550k PE250 pairs, seed 42) on the
    card with W2RAP_TIMELOG=1: both kernels launched, graph and paths
    validated, step split and peak device memory printed;
@@ -73,12 +76,16 @@ exits non-zero and prints no result line:
    step 3 of the pallas run, HBV and paths validated; the step-3 and
    step-4 split, the K2 rows, the unique K2 kmers and the peak device
    memory printed;
-7. steps 1-5 at E. coli scale with gaps (4.6 Mbp, 550k PE250 pairs, 12
+7. steps 1-7 at E. coli scale with gaps (4.6 Mbp, 550k PE250 pairs, 12
    copies of a 3 kb repeat, 8 coverage dips, seed 7) at K=260 on the
-   card: graph and paths validated, the .perf walls, the step-5 split
-   (step5.unsat, .blobs, .add_new_stuff and its layers, .partners), the
-   blobs and pieces, the peak device memory and step 5's kernel
-   launches printed.
+   card: graph and paths validated, no kernel launched in steps 6-7,
+   the .perf walls, the step 5-7 split (step5.unsat, .blobs,
+   .add_new_stuff and its layers, .partners; step6.reroute, .passes,
+   .pullaparter, .improve, .ext_final, .tail, .outputs, .classify;
+   step7.make_gaps, .final_files), the blobs and pieces, the contig
+   count, N50 and gaps added, the peak device memory and the kernel
+   launches of step 5 and of steps 6-7 printed; then the port's hbv2gfa
+   on pe.contig, its stats printed.
 
 Then the total seconds, one JSON line of the kernels, and last the
 device JSON line.
@@ -92,6 +99,8 @@ per compare or compare-exchange) over 67 T/s (the H100's non-tensor
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -107,6 +116,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from w2rap_contigger_tpu_torch import __main__ as cli  # noqa: E402
+from w2rap_contigger_tpu_torch import hbv2gfa  # noqa: E402
 from w2rap_contigger_tpu_torch import device as tdev  # noqa: E402
 from w2rap_contigger_tpu_torch.graph import validate  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import _build  # noqa: E402
@@ -118,6 +128,7 @@ from w2rap_contigger_tpu_torch.ops import kmerize as kkm  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import radix  # noqa: E402
 from w2rap_contigger_tpu_torch import native  # noqa: E402
 from w2rap_contigger_tpu_torch.pipeline import step3_repath, step5_gaps  # noqa: E402
+from w2rap_contigger_tpu_torch.pipeline import step6_simplify, step7_scaffold  # noqa: E402
 from w2rap_contigger_tpu_torch.utils import sysinfo  # noqa: E402
 
 DEV = "cuda"
@@ -161,6 +172,11 @@ SMALL_K = ("pe.small_K.hbv.npz", "pe.small_K.paths.npz")
 LARGE_K = ("pe.large_K.hbv.npz", "pe.large_K.paths.npz")
 CLEAN = ("pe.large_K.clean.hbv.npz", "pe.large_K.clean.paths.npz")
 FINAL = ("pe.large_K.final.hbv.npz", "pe.large_K.final.paths.npz")
+CONTIG = ("pe.contig.hbv.npz", "pe.contig.paths.npz")
+# what steps 6-7 write; pe_assembly.* only when MakeGaps adds a gap
+STEP67_FILES = CONTIG + ("a.lines.fasta", "stats", "a.fin.frags.dist", "a_contigs_raw.gfa",
+                         "a_contigs_lines.gfa", "pe_assembly_raw.gfa", "pe_assembly_lines.gfa")
+ASSEMBLY = ("pe_assembly.hbv.npz", "pe_assembly.paths.npz")
 
 
 def fail(msg: str):
@@ -838,6 +854,39 @@ def same_outputs(a: str, b: str, names=SMALL_K) -> list[str]:
     return diffs
 
 
+def same_files(a: str, b: str, names) -> list[str]:
+    """Every array of the npz files and every other file byte for byte;
+    a file present in one directory only differs."""
+    diffs = []
+    for name in names:
+        there = [os.path.exists(f"{d}/{name}") for d in (a, b)]
+        if not all(there):
+            if any(there):
+                diffs.append(f"{name}: in one run only")
+            continue
+        if name.endswith(".npz"):
+            za, zb = np.load(f"{a}/{name}"), np.load(f"{b}/{name}")
+            if sorted(za.files) != sorted(zb.files) or any(
+                    za[key].shape != zb[key].shape or not np.array_equal(za[key], zb[key])
+                    for key in za.files):
+                diffs.append(name)
+            continue
+        with open(f"{a}/{name}", "rb") as fa, open(f"{b}/{name}", "rb") as fb:
+            if fa.read() != fb.read():
+                diffs.append(name)
+    return diffs
+
+
+def contig_stats(out_dir: str) -> dict:
+    """The line count and N50 of `stats`, and the records of a.lines.fasta."""
+    with open(f"{out_dir}/stats") as f:
+        stats = dict(line.strip().split(": ", 1) for line in f if ": " in line)
+    with open(f"{out_dir}/a.lines.fasta") as f:
+        records = sum(line.startswith(">") for line in f)
+    return {"n_lines": int(stats["n_lines"]), "contig_line_N50": int(stats["contig_line_N50"]),
+            "fasta_records": records, "cn_frac_good": stats["cn_frac_good"]}
+
+
 def phase_parity(work: str) -> str:
     data = f"{work}/s200"
     gen_s = synth(data, **SMALL)
@@ -925,10 +974,46 @@ class Step5Watch:
         step5_gaps.assemble_gaps2, step5_gaps.add_new_stuff = self._ag2, self._ans
 
 
+class Step67Watch:
+    """Wraps steps 6-7 for one run: the kernel launches from the start of
+    Simplify to the end of the run, the edges Simplify was given and the
+    gaps MakeGaps added."""
+
+    def __init__(self):
+        self.before = None
+        self.edges_in = self.n_gaps = 0
+
+    def __enter__(self):
+        self._simplify, self._make_gaps = step6_simplify.simplify, step7_scaffold.make_gaps
+
+        def simplify(hbv, *a, **kw):
+            self.before = dict(tdev.LAUNCHES)
+            self.edges_in = hbv.n_edges
+            return self._simplify(hbv, *a, **kw)
+
+        def make_gaps(*a, **kw):
+            hbv, paths, n_gaps = self._make_gaps(*a, **kw)
+            self.n_gaps = n_gaps
+            return hbv, paths, n_gaps
+
+        step6_simplify.simplify, step7_scaffold.make_gaps = simplify, make_gaps
+        return self
+
+    def __exit__(self, *exc):
+        step6_simplify.simplify, step7_scaffold.make_gaps = self._simplify, self._make_gaps
+
+    def launches(self) -> dict:
+        """Launches since Simplify began, by kernel (all zero)."""
+        if self.before is None:
+            fail("step 6 did not run")
+        return {n: tdev.LAUNCHES[n] - self.before[n] for n in self.before}
+
+
 def phase_parity_step5(work: str):
-    """Steps 1-5 at K=200 on the repeat-rich 500 kb genome, cuda against
-    cpu under the default sort: every checkpoint identical, a blob
-    solved, a piece added and K2 launched inside step 5."""
+    """Steps 1-7 at K=200 on the repeat-rich 500 kb genome, cuda against
+    cpu under the default sort: every checkpoint and every step 6-7 file
+    identical, a blob solved, a piece added, K2 launched inside step 5
+    and nothing in steps 6-7."""
     data = f"{work}/rep500"
     gen_s = synth(data, REPEAT["glen"], REPEAT["pairs"], REPEAT["seed"], REPEAT["extra"])
     times, stats, splits = {}, {}, {}
@@ -937,32 +1022,44 @@ def phase_parity_step5(work: str):
         sysinfo.timelog_reset()
         tdev.reset_launches()
         t0 = time.time()
-        with Step5Watch() as watch:
+        with Step5Watch() as watch, Step67Watch() as watch67:
             run_cli(data, f"{data}/{dev}", dev,
-                    ["-K", "200", "--dump_all", "--dump_perf"], to_step=5)
+                    ["-K", "200", "--dump_all", "--dump_perf"], to_step=7)
         times[dev] = time.time() - t0
-        stats[dev] = dict(watch.stats)
-        splits[dev] = {k: v for k, v in _split().items() if k.startswith("step5")}
+        stats[dev] = dict(watch.stats, gaps=watch67.n_gaps)
+        splits[dev] = {k: v for k, v in _split().items() if k.startswith(("step5", "step6",
+                                                                          "step7"))}
         if dev == DEV:
             step5_launches = watch.launches
+            step67_launches = watch67.launches()
     diffs = same_outputs(f"{data}/{DEV}", f"{data}/cpu", SMALL_K + LARGE_K + CLEAN + FINAL)
+    diffs += same_files(f"{data}/{DEV}", f"{data}/cpu", STEP67_FILES + ASSEMBLY)
     if diffs:
-        fail(f"repeat-rich 500 kb steps 1-5: cuda and cpu outputs differ in {diffs}")
+        fail(f"repeat-rich 500 kb steps 1-7: cuda and cpu outputs differ in {diffs}")
+    if any(step67_launches.values()):
+        fail(f"repeat-rich 500 kb: steps 6-7 launched kernels {step67_launches}")
     if stats[DEV] != stats["cpu"]:
         fail(f"repeat-rich 500 kb: blob counts differ {stats}")
     if stats[DEV]["solved"] <= 0 or stats[DEV]["pieces"] <= 0:
         fail(f"repeat-rich 500 kb: step 5 solved no blob or added no piece {stats[DEV]}")
     if step5_launches["collapse"] <= 0:
         fail(f"repeat-rich 500 kb: K2 was not launched in step 5 {step5_launches}")
-    edges = [len(np.load(f"{data}/{DEV}/{name}")["inv"]) for name in (CLEAN[0], FINAL[0])]
-    say("parity_500kb_step5", K=200, sort="lax", synth_s=f"{gen_s:.1f}",
+    edges = [len(np.load(f"{data}/{DEV}/{name}")["inv"])
+             for name in (CLEAN[0], FINAL[0], CONTIG[0])]
+    say("parity_500kb_steps1_7", K=200, sort="lax", synth_s=f"{gen_s:.1f}",
         cuda_s=f"{times[DEV]:.2f}", cpu_s=f"{times['cpu']:.2f}",
         blobs=stats[DEV]["blobs"], solved=stats[DEV]["solved"], pieces=stats[DEV]["pieces"],
-        edges_clean=edges[0], edges_final=edges[1],
+        edges_clean=edges[0], edges_final=edges[1], edges_contig=edges[2],
+        gaps=stats[DEV]["gaps"],
         assemble_gaps_cuda_s=_perf_seconds(f"{data}/{DEV}", "AssembleGaps"),
         assemble_gaps_cpu_s=_perf_seconds(f"{data}/cpu", "AssembleGaps"),
+        simplify_cuda_s=_perf_seconds(f"{data}/{DEV}", "Simplify"),
+        simplify_cpu_s=_perf_seconds(f"{data}/cpu", "Simplify"),
+        make_gaps_final_files_cuda_s=_perf_seconds(f"{data}/{DEV}", "MakeGaps+FinalFiles"),
+        make_gaps_final_files_cpu_s=_perf_seconds(f"{data}/cpu", "MakeGaps+FinalFiles"),
+        **contig_stats(f"{data}/{DEV}"),
         step5_launches=json.dumps({n: v for n, v in step5_launches.items() if v}),
-        identical=True)
+        step67_launches=sum(step67_launches.values()), identical=True)
     for dev in (DEV, "cpu"):
         say("parity_500kb_split", device=dev, **splits[dev])
 
@@ -1072,8 +1169,8 @@ def phase_step4(data: str) -> tuple[dict, int]:
 
 
 def phase_ecoli_gaps(work: str) -> dict:
-    """Steps 1-5 at E. coli scale with gaps, K=260, on the card; returns
-    the launches of the whole run."""
+    """Steps 1-7 at E. coli scale with gaps, K=260, on the card, then
+    hbv2gfa on pe.contig; returns the launches of the whole run."""
     data = f"{work}/ecoli_gaps"
     gen_s = synth(data, ECOLI_GAPS["glen"], ECOLI_GAPS["pairs"], ECOLI_GAPS["seed"],
                   ECOLI_GAPS["extra"])
@@ -1083,26 +1180,51 @@ def phase_ecoli_gaps(work: str) -> dict:
     torch.cuda.synchronize()
     tdev.reset_launches()
     t0 = time.time()
-    with Step5Watch() as watch:
+    with Step5Watch() as watch, Step67Watch() as watch67:
         hbv, paths, _ = run_cli(data, f"{data}/out", DEV,
-                                ["-K", "260", "--dump_perf"], to_step=5)
+                                ["-K", "260", "--dump_perf"], to_step=7)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(tdev.LAUNCHES)
+    step67_launches = watch67.launches()
     validate.test_involution(hbv)
     validate.validate_paths(hbv, paths)
     if watch.stats["pieces"] > 0 and watch.launches["collapse"] <= 0:
         fail(f"E. coli with gaps: step 5 added pieces but launched no K2 {watch.launches}")
-    with open(f"{data}/out/pe.perf") as f:
+    if any(step67_launches.values()):
+        fail(f"E. coli with gaps: steps 6-7 launched kernels {step67_launches}")
+    out = f"{data}/out"
+    missing = [n for n in STEP67_FILES if not os.path.exists(f"{out}/{n}")]
+    if missing:
+        fail(f"E. coli with gaps: steps 6-7 did not write {missing}")
+    with open(f"{out}/pe.perf") as f:
         perf = " | ".join(x.strip() for x in f)
-    say("ecoli_gaps_step5", genome=ECOLI_GAPS["glen"], pairs=ECOLI_GAPS["pairs"], K=260,
+    say("ecoli_gaps_steps1_7", genome=ECOLI_GAPS["glen"], pairs=ECOLI_GAPS["pairs"], K=260,
         synth_s=f"{gen_s:.1f}", wall_s=f"{wall:.2f}", edges=hbv.n_edges,
         path_edges=len(paths.edges), **watch.stats,
+        edges_final=watch67.edges_in,
+        edges_contig=len(np.load(f"{out}/{CONTIG[0]}")["inv"]), gaps=watch67.n_gaps,
+        **contig_stats(out),
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         launches=json.dumps({n: v for n, v in launches.items() if v}),
-        step5_launches=json.dumps({n: v for n, v in watch.launches.items() if v}))
-    say("ecoli_gaps_split", **{k: v for k, v in _split().items() if k.startswith("step5")})
+        step5_launches=json.dumps({n: v for n, v in watch.launches.items() if v}),
+        step67_launches=sum(step67_launches.values()))
+    split = _split()
+    say("ecoli_gaps_split", **{k: v for k, v in split.items() if k.startswith("step5")})
+    say("ecoli_gaps_split67", **{k: v for k, v in split.items()
+                                 if k.startswith(("step6", "step7"))})
     say("ecoli_gaps_perf", perf=repr(perf))
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        hbv2gfa.main(["-i", f"{out}/pe.contig", "-o", f"{out}/hbv2gfa",
+                      "-g", str(ECOLI_GAPS["glen"] // 1000)])
+    gfa_s = time.time() - t0
+    stats = dict(line.split(": ", 1) for line in buf.getvalue().splitlines() if ": " in line)
+    if not os.path.exists(f"{out}/hbv2gfa_raw.gfa") or "N50" not in stats:
+        fail(f"hbv2gfa on pe.contig wrote no GFA or no N50: {buf.getvalue()!r}")
+    say("ecoli_gaps_hbv2gfa", seconds=f"{gfa_s:.2f}",
+        **{k.replace(" ", "_"): v for k, v in stats.items()})
     return launches
 
 

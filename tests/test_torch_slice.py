@@ -53,10 +53,10 @@ def test_step2_cli_matches_jax_pipeline(fastq, tmp_path):
 
 def test_cli_refuses_what_is_not_ported(fastq, tmp_path, monkeypatch):
     out = str(tmp_path)
+    # steps 6-7 and --dev_run_test are ported; sharding is not
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["-r", fastq, "-o", out, "--to_step", "6", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["-o", out, "--from_step", "6", "--to_step", "6", "--device", "cpu"])
+        cli.main(["-r", fastq, "-o", out, "--to_step", "6", "--device", "cpu",
+                  "--shard", "2"])
     # the bitonic sort (K3) is ported: W2RAP_SORT=pallas runs
     monkeypatch.setenv("W2RAP_SORT", "pallas")
     hbv, paths, d = cli.main(["-r", fastq, "-o", out, "--to_step", "2", "--device", "cpu"])
@@ -73,6 +73,12 @@ def test_cli_refuses_what_is_not_ported(fastq, tmp_path, monkeypatch):
         tdev.resolve_device("cuda")
     with pytest.raises(RuntimeError, match="never falls back"):
         cli.main(["-r", fastq, "-o", out, "--to_step", "2"])
+    # steps 6-7 and their replay are host numpy, and still refuse a
+    # missing card when cuda is asked
+    with pytest.raises(RuntimeError, match="never falls back"):
+        cli.main(["-o", out, "--from_step", "6"])
+    with pytest.raises(RuntimeError, match="never falls back"):
+        cli.main(["-o", out, "--dev_run_test", "pathfinder"])
 
 
 def test_port_imports_no_jax():
@@ -93,4 +99,4 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 50
+    assert int(res.stdout.strip()) >= 64

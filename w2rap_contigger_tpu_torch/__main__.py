@@ -3,13 +3,15 @@ plus --device.
 
 Usage:
   python -m w2rap_contigger_tpu_torch -r r1.fastq,r2.fastq -o out_dir \\
-      --to_step 5 [-K 200|260|...] [-s min_size] [--device cuda|cpu] ...
+      [-K 200|260|...] [-s min_size] [--device cuda|cpu] ...
+  python -m w2rap_contigger_tpu_torch -o out_dir --dev_run_test pathfinder
 
-Steps 1-5 are ported; --to_step above 5 raises NotImplementedError.
---device cuda (the default) needs a card and never falls back to the
-CPU; --device cpu runs the plain PyTorch versions of the kernels and
-exists for the tests.  W2RAP_SORT=lax|radix|pallas picks the counting
-sort of steps 2 and 3, as in the JAX package.
+All seven steps run; the default --to_step 7 writes a.lines.fasta,
+stats and the GFA files.  --device cuda (the default) needs a card and
+never falls back to the CPU; --device cpu runs the plain PyTorch
+versions of the kernels and exists for the tests.  W2RAP_SORT=lax|
+radix|pallas picks the counting sort of steps 2 and 3, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -61,21 +63,19 @@ def parse_args(argv=None):
     ap.add_argument("--heuristics", default="",
                     help="NAME=value,... overrides (long_heuristics analogue)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="device of steps 2, 3 and 5 (cpu: plain PyTorch, for tests)")
+                    help="device of the kernels of steps 2, 3 and 5; steps 4, 6 and 7 "
+                         "are host numpy (cpu: plain PyTorch, for tests)")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
-    """Run the CLI; returns the last step's (hbv, paths, dict)."""
+    """Run the CLI; returns the last step's (hbv, paths, dict), or the
+    replayed step 6's (hbv, paths, None) under --dev_run_test."""
     args = parse_args(argv)
     if args.large_k not in ALLOWED_K:
         raise SystemExit(
             f"-K {args.large_k}: not an allowed K; pick from "
             + ",".join(str(x) for x in ALLOWED_K)
-        )
-    if args.dev_run_test:
-        raise NotImplementedError(
-            "--dev_run_test (step 6 replay) is not ported yet; see ROADMAP.md"
         )
     if args.shard > 1:
         raise NotImplementedError(
@@ -89,6 +89,9 @@ def main(argv=None):
         heur = _cfg.parse_heuristics(args.heuristics)
         for f in dataclasses.fields(heur):
             setattr(_cfg.DEFAULT, f.name, getattr(heur, f.name))
+
+    if args.dev_run_test:
+        return _dev_run_test(args)
 
     from .pipeline.driver import run_pipeline
 
@@ -104,15 +107,76 @@ def main(argv=None):
         min_size=args.min_size,
         dump_all=args.dump_all,
         dump_perf=args.dump_perf,
+        path_finder=args.path_finder,
         threads=args.threads,
         max_mem_gb=args.max_mem,
         disk_batches=args.disk_batches,
         tmp_dir=args.tmp_dir,
         pair_sample=args.pair_sample,
         extend_paths=args.extend_paths,
+        dump_pf=args.dump_pf,
         fill_join=args.fill_join,
         device=args.device,
     )
+
+
+def _dev_run_test(args):
+    """--dev_run_test pathfinder|pathfinder2: replay step 6 from the
+    --dump_pf checkpoints through the end of step 6, mirroring the
+    reference dev harness (w2rap-contigger.cc:190-297).
+
+    pathfinder: load pf_start.*, run unroll_loops(800) + cleanup, dump
+    pf_after_loops.*, then continue.  pathfinder2: start directly from
+    pf_after_loops.*.  Both then run untangle + the post-PathFinder
+    Simplify tail and re-emit the contig outputs.  Host numpy, like
+    step 6; --device is checked as for a run (cuda without a card
+    raises).
+    """
+    from .core.reads import ReadSet
+    from .device import resolve_device
+    from .graph import degloop as degloop_mod, plasmids
+    from .graph import ops as gops
+    from .graph.hbv import HyperBasevector
+    from .paths.extend import ext_final
+    from .paths.improve import improve_paths
+    from .paths.pathfinder import PathFinder
+    from .paths.read_paths import ReadPathVec
+    from .pipeline import step6_simplify
+
+    resolve_device(args.device)
+    out = args.out_dir
+    print("=== w2rap contigger tpu: development test run ===")
+    if args.dev_run_test == "pathfinder":
+        hbv = HyperBasevector.load(f"{out}/pf_start.hbv.npz")
+        paths = ReadPathVec.load(f"{out}/pf_start.paths.npz")
+        pf = PathFinder(hbv, paths)
+        pf.unroll_loops(800)
+        hbv, paths = gops.squeeze(pf.hbv, pf.paths)
+        hbv.save(f"{out}/pf_after_loops.hbv.npz")
+        paths.save(f"{out}/pf_after_loops.paths.npz")
+    else:
+        hbv = HyperBasevector.load(f"{out}/pf_after_loops.hbv.npz")
+        paths = ReadPathVec.load(f"{out}/pf_after_loops.paths.npz")
+
+    pf = PathFinder(hbv, paths)
+    pf.untangle_complex_in_out_choices(700)
+    hbv, paths = gops.squeeze(pf.hbv, pf.paths)
+
+    reads = ReadSet.load(f"{out}/frag_reads_orig.npz")
+    paths, _ = improve_paths(hbv, paths, reads)
+    paths, next_ = ext_final(hbv, paths, reads, min_gain=20, mode=1)
+    print(f"{next_} paths extended")
+    hbv, paths = degloop_mod.degloop(hbv, paths, reads, mode=1, min_dist=2.5)
+    hbv, paths = gops.remove_hangs(hbv, paths, 700)
+    hbv, paths = gops.squeeze(hbv, paths)
+    hbv, paths = plasmids.unwind_three_edge_plasmids(hbv, paths)
+    hbv, paths = gops.remove_small_components(hbv, paths, remove_small_cycles=True)
+    hbv, paths = gops.squeeze(hbv, paths)
+    step6_simplify.contig_outputs(hbv, paths, out, prefix="a")
+    hbv.save(f"{out}/{args.prefix}.contig.hbv.npz")
+    paths.save(f"{out}/{args.prefix}.contig.paths.npz")
+    print("Dumping contig graph and paths...\n   DONE!")
+    return hbv, paths, None
 
 
 if __name__ == "__main__":

@@ -1,16 +1,18 @@
-"""Pipeline driver of the port: steps 1-5 with the JAX package's
+"""Pipeline driver of the port: steps 1-7 with the JAX package's
 checkpoints.
 
-Counterpart of w2rap_contigger_tpu/pipeline/driver.py:52-196.  Step 1
+Counterpart of w2rap_contigger_tpu/pipeline/driver.py:52-243.  Step 1
 is host `extract_reads`; steps 2 and 3 run on `device` through this
 package; step 4 (Clean200x) is host numpy, as in the JAX package; step 5
 (AssembleGaps2 + AddNewStuff + PartnersToEnds) runs its blobs on the
-host with pre-correction and AddNewStuff's graph on `device`.  Steps 6-7
-are not ported yet and raise.  Outputs have the JAX package's names and
+host with pre-correction and AddNewStuff's graph on `device`; steps 6
+(Simplify + contig outputs) and 7 (MakeGaps + FinalFiles) are host
+numpy, as in the JAX package.  Outputs have the JAX package's names and
 formats: frag_reads_orig.npz, small_K.freqs, <p>.small_K.hbv.npz /
 .paths.npz (step 2), <p>.large_K.hbv.npz / .paths.npz (step 3),
 <p>.large_K.clean.hbv.npz / .paths.npz (step 4), <p>.large_K.final.hbv.npz
-/ .paths.npz (step 5) and <p>.perf.
+/ .paths.npz (step 5), <p>.contig.* and the a.* contig files (step 6),
+<p>_assembly.* and the <p>_assembly GFA (step 7) and <p>.perf.
 """
 
 from __future__ import annotations
@@ -21,12 +23,13 @@ import time
 from ..core.io_fastq import extract_reads
 from ..core.reads import ReadSet
 from ..device import resolve_device, timed
+from ..graph import gfa, lines as lines_mod
 from ..graph.hbv import HyperBasevector
+from ..paths.pathfinder import PathFinder
 from ..paths.read_paths import ReadPathVec
 from ..utils import sysinfo
-from . import step2_small_k, step3_repath, step4_clean, step5_gaps
-
-LAST_PORTED_STEP = 5
+from . import (step2_small_k, step3_repath, step4_clean, step5_gaps, step6_simplify,
+               step7_scaffold)
 
 
 class PerfLog:
@@ -58,31 +61,28 @@ def run_pipeline(
     prefix: str = "pe",
     large_k: int = 200,
     from_step: int = 1,
-    to_step: int = 5,
+    to_step: int = 7,
     min_freq: int = 4,
     min_qual: int = 7,
     min_size: int = 0,
     dump_all: bool = False,
     dump_perf: bool = False,
     chunk_reads: int = 65536,
+    path_finder: bool = False,
     threads: int = 4,
     max_mem_gb: int = 10000,
     disk_batches: int = 0,
     tmp_dir: str | None = None,
     pair_sample: int = 200,
     extend_paths: bool = False,
+    dump_pf: bool = False,
     fill_join: bool = False,
     device="cuda",
 ):
-    """Run steps from_step..to_step (1..5) on `device`; returns (hbv,
+    """Run steps from_step..to_step (1..7) on `device`; returns (hbv,
     paths, dict): the graph and paths of the last step that ran, and the
     last kmer dictionary counted by steps 2-3 (Nones where no step made
     them)."""
-    if to_step > LAST_PORTED_STEP or from_step > LAST_PORTED_STEP:
-        raise NotImplementedError(
-            f"steps {LAST_PORTED_STEP + 1}-7 are not ported yet "
-            f"(from_step={from_step}, to_step={to_step}); see ROADMAP.md"
-        )
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     perf = PerfLog(f"{out_dir}/{prefix}.perf" if dump_perf else None)
@@ -175,6 +175,45 @@ def run_pipeline(
             hbv.save(f"{p}.large_K.final.hbv.npz")
             paths.save(f"{p}.large_K.final.paths.npz")
         perf.checkpoint("AssembleGaps")
+    elif from_step == 6:
+        hbv = HyperBasevector.load(f"{p}.large_K.final.hbv.npz")
+        paths = ReadPathVec.load(f"{p}.large_K.final.paths.npz")
+
+    if from_step <= 6 <= to_step:
+        # Simplify + lines + contig outputs (w2rap-contigger.cc:477-558)
+        hbv, paths = step6_simplify.simplify(
+            hbv, paths, get_reads(), run_pathfinder=path_finder,
+            dump_pf=out_dir if dump_pf else None,
+        )
+        with sysinfo.timelog("step6.outputs"):
+            step6_simplify.contig_outputs(hbv, paths, out_dir, prefix="a")
+        hbv.save(f"{p}.contig.hbv.npz")
+        paths.save(f"{p}.contig.paths.npz")
+        with sysinfo.timelog("step6.classify"):
+            PathFinder(hbv, paths).classify_forks(log=True)
+        perf.checkpoint("Simplify")
+    elif from_step == 7:
+        hbv = HyperBasevector.load(f"{p}.contig.hbv.npz")
+        paths = ReadPathVec.load(f"{p}.contig.paths.npz")
+
+    if from_step <= 7 <= to_step:
+        # PE scaffolding, then FinalFiles (FinalFiles.cc:22): re-find
+        # lines and re-emit the outputs from the scaffolded graph
+        with sysinfo.timelog("step7.make_gaps"):
+            lines7 = lines_mod.find_lines(hbv)
+            hbv, paths, n_gaps = step7_scaffold.make_gaps(
+                hbv, paths, lines7, min_line=5000, min_link_count=3
+            )
+        with sysinfo.timelog("step7.final_files"):
+            if n_gaps:
+                hbv.save(f"{p}_assembly.hbv.npz")
+                paths.save(f"{p}_assembly.paths.npz")
+                lines_f = lines_mod.find_lines(hbv)
+                lines_f = lines_mod.sort_lines(hbv, lines_f)
+                lines_mod.dump_line_files(hbv, lines_f, out_dir, "a", paths=paths)
+                lines_mod.write_stats(hbv, lines_f, out_dir)
+            gfa.gfa_dump(hbv, f"{out_dir}/{prefix}_assembly", find_lines=True)
+        perf.checkpoint("MakeGaps+FinalFiles")
 
     if sysinfo.timelog_enabled():
         rep = sysinfo.timelog_report()
