@@ -23,7 +23,12 @@ exits non-zero and prints no result line:
    on odd tile counts of tie-heavy rows, with rows all ones in the
    comparator words; then (a) step 2's shape, 210.1M rows of
    4 key words + payload; (b) step 3's shape at K=260, 17 key words with
-   ctx in the pad bits, at the row count phase 6 counted; K4c (the merge
+   ctx in the pad bits, at the row count phase 6 counted (8% sentinel
+   rows mid-stream), and (c) the planes step 3 of phase 6's radix run
+   handed to the partition sort (a few padding rows a tile); K4b (a
+   block a tile and bin) with its tail rows, share of the bound,
+   registers and spills (its first form is timed beside it by
+   scripts/sort_kernel_ab.py --kernels k4b --parent); K4c (the merge
    of K4b's sorted slots, csrc/region_merge.cu) also with its final
    gather; K4d (the merge path by the block) at its first level and at
    its last, as records and gathering; each kernel's time (K4d's mean
@@ -66,9 +71,23 @@ exits non-zero and prints no result line:
    steps 6-7; the blob and piece counts, the AssembleGaps, Simplify and
    MakeGaps+FinalFiles seconds, the step 5-7 split on both devices, the
    line count and N50 printed;
+4d. step 2 with --fill_join on scripts/parity_filljoin.sh's low-coverage
+   200 kb genome (10k PE250 pairs, seed 11), --device cuda against
+   --device cpu: small_K.freqs and the small_K checkpoints identical, and
+   different from the card's run without --fill_join; the edge counts,
+   seconds and the fill_gaps / join_overlaps spans printed;
 5. step 2 at E. coli scale (4.6 Mbp, 550k PE250 pairs, seed 42) on the
    card with W2RAP_TIMELOG=1: both kernels launched, graph and paths
-   validated, step split and peak device memory printed;
+   validated, step split, the count's and the run's peak device memory
+   printed;
+5b. the same with -d 4 -m 4 --tmp_dir (at least 4 hash ranges, as many
+   as the 4 GiB ceiling needs, each spilled): small_K.freqs and the
+   small_K checkpoints identical to phase 5's, the spill directory empty
+   afterwards, the count's peak device memory within 4 GiB and below
+   phase 5's, K2 launched R times phase 5's and K1 R + 1 times (the
+   ranges' sizing pass and one pass a range; R the sorts the count's
+   timelog records); both peaks, the count's split and the launches
+   printed;
 6. steps 1-4 at E. coli scale with K=260 on the card, three times:
    W2RAP_SORT=lax, radix, then pallas.  The checkpoints of the three runs
    must be identical, every K4 kernel launched in step 2 and in step 3 of
@@ -140,6 +159,8 @@ SMALL = {"glen": 200_000, "pairs": 24_000}
 # scripts/parity_repeat.sh's data, and E. coli scale with gaps
 REPEAT = {"glen": 500_000, "pairs": 60_000, "seed": 7,
           "extra": ("--repeats", "12", "--repeat_len", "3000", "--dips", "4")}
+# scripts/parity_filljoin.sh's low-coverage genome (12x): captured gaps
+FILL_JOIN = {"glen": 200_000, "pairs": 10_000, "seed": 11}
 ECOLI_GAPS = {"glen": 4_600_000, "pairs": 550_000, "seed": 7,
               "extra": ("--repeats", "12", "--repeat_len", "3000", "--dips", "8")}
 NATIVE_LEAVES = (("w2rapcount", "count_kernel.cc"), ("w2rapgraph", "graph_kernel.cc"),
@@ -469,6 +490,9 @@ def check_radix(label: str, planes: torch.Tensor, num_keys: int, cmp_keys: int) 
     b, by = bound_ms(n_valid * 20 + total * 20 + tail_bytes)
     res["radix_partition"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b, bound_by=by)
+    say("radix_k4b", case=label, rows=n, tiles=n_tiles, bins=n_bins, cap=cap,
+        tail_rows=n_full, ms=f"{ms:.4f}", bound_ms=f"{b:.4f}", share=f"{b / ms:.3f}",
+        **radix.partition_attrs())
     overflow = int(part[3][0])
     recs = part[:3]
     del s, args, part
@@ -1072,14 +1096,50 @@ def _split() -> dict:
     return split
 
 
-def phase_scale(data: str) -> dict:
+def timelog_calls(span: str) -> int:
+    """How many times the timelog saw `span` since its last reset."""
+    for line in sysinfo.timelog_report().splitlines():
+        _, name, _, calls = [x.strip() for x in line.split(",")]
+        if name == span:
+            return int(calls.split()[0])
+    return 0
+
+
+class CountPeak:
+    """Wraps step 2's count for one run: the peak device memory inside it
+    (the peak statistics reset as it starts) and its wall."""
+
+    def __enter__(self):
+        self._count = tke.count_kmers_batched
+
+        def count(*a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            out = self._count(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds = time.time() - t0
+            self.peak = torch.cuda.max_memory_allocated()
+            return out
+
+        tke.count_kmers_batched = count
+        return self
+
+    def __exit__(self, *exc):
+        tke.count_kmers_batched = self._count
+
+
+def phase_scale(data: str) -> tuple[dict, int]:
+    """Step 2 at E. coli scale; returns its launches and the peak device
+    memory of its count."""
     os.environ["W2RAP_TIMELOG"] = "1"
     sysinfo.timelog_reset()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     tdev.reset_launches()
     t0 = time.time()
-    hbv, paths, d = run_cli(data, f"{data}/out", DEV, ["--dump_perf"])
+    with CountPeak() as count:
+        hbv, paths, d = run_cli(data, f"{data}/out", DEV, ["--dump_perf"])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(tdev.LAUNCHES)
@@ -1094,24 +1154,116 @@ def phase_scale(data: str) -> dict:
     say("ecoli_step2", genome=ECOLI["glen"], pairs=ECOLI["pairs"], reads=paths.n_reads,
         wall_s=f"{wall:.2f}", unique_kmers=d.size,
         edges=hbv.n_edges, path_edges=len(paths.edges),
-        max_memory_allocated=peak, launches=json.dumps(launches))
+        max_memory_allocated=peak, count_s=f"{count.seconds:.3f}",
+        count_max_memory_allocated=count.peak, launches=json.dumps(launches))
     say("ecoli_split", **_split())
     say("ecoli_perf", perf=repr(perf))
-    return launches
+    return launches, count.peak
 
 
-def phase_step4(data: str) -> tuple[dict, int]:
+def phase_batched(data: str, launches: dict, count_peak: int):
+    """Steps 1-2 at E. coli scale with -d 4 -m 4 --tmp_dir (4 hash ranges
+    or more, each spilled) against phase 5's unbatched run: small_K.freqs
+    and the small_K checkpoints identical, the spill files gone, the
+    count's peak device memory within the 4 GiB ceiling and below the
+    unbatched one's, K2 launched once a range and K1 once a range plus
+    the pass that sizes the ranges."""
+    os.environ["W2RAP_TIMELOG"] = "1"
+    sysinfo.timelog_reset()
+    tdev.reset_launches()
+    spill = f"{data}/spill"
+    t0 = time.time()
+    with CountPeak() as count:
+        run_cli(data, f"{data}/batched", DEV,
+                ["-d", "4", "-m", "4", "--tmp_dir", spill, "--dump_perf"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    got = dict(tdev.LAUNCHES)
+    diffs = same_outputs(f"{data}/out", f"{data}/batched")
+    if diffs:
+        fail(f"E. coli step 2: -d 4 -m 4 and unbatched outputs differ in {diffs}")
+    left = os.listdir(spill) if os.path.isdir(spill) else None
+    if left != []:
+        fail(f"E. coli -d 4 --tmp_dir: the spill directory holds {left}")
+    if count.peak >= count_peak or count.peak > 4 << 30:
+        fail(f"E. coli -d 4 -m 4: the count's peak device memory {count.peak} is not "
+             f"within 4 GiB and below the unbatched {count_peak}")
+    split = _split()
+    R = timelog_calls("step2.count.sort")
+    if R < 4 or (got["collapse"] != R * launches["collapse"]
+            or got["kmerize"] != (R + 1) * launches["kmerize"]):
+        fail(f"E. coli -d 4: {R} ranges, launches {got} against unbatched {launches}")
+    say("ecoli_batched", disk_batches=4, max_mem_gb=4, ranges=R, wall_s=f"{wall:.2f}",
+        count_s=f"{count.seconds:.3f}", count_max_memory_allocated=count.peak,
+        unbatched_count_max_memory_allocated=count_peak,
+        kmerize=got["kmerize"], collapse=got["collapse"],
+        unbatched_kmerize=launches["kmerize"], unbatched_collapse=launches["collapse"],
+        spill_left=len(left), identical=True)
+    say("ecoli_batched_split", **{k: v for k, v in split.items()
+                                  if k.startswith("step2.count")})
+
+
+def phase_fill_join(work: str):
+    """Step 2 with --fill_join on scripts/parity_filljoin.sh's low-coverage
+    200 kb genome (10k PE250 pairs, seed 11), --device cuda against
+    --device cpu: small_K.freqs and the small_K checkpoints identical, and
+    different from the card's run without --fill_join."""
+    data = f"{work}/fj200"
+    gen_s = synth(data, FILL_JOIN["glen"], FILL_JOIN["pairs"], FILL_JOIN["seed"])
+    os.environ["W2RAP_TIMELOG"] = "1"
+    times = {}
+    for label, dev, extra in (("cuda_fj", DEV, ["--fill_join"]), ("cpu_fj", "cpu", ["--fill_join"]),
+                              ("cuda", DEV, [])):
+        sysinfo.timelog_reset()
+        tdev.reset_launches()
+        t0 = time.time()
+        _, _, d = run_cli(data, f"{data}/{label}", dev, ["-K", "200", *extra])
+        times[label] = time.time() - t0
+        if label == "cuda_fj":
+            launches = {n: v for n, v in tdev.LAUNCHES.items() if v}
+            split = {k: v for k, v in _split().items()
+                     if k.startswith(("step2.fill_gaps", "step2.join_overlaps"))}
+            kmers = d.size
+    diffs = same_outputs(f"{data}/cuda_fj", f"{data}/cpu_fj")
+    if diffs:
+        fail(f"200 kb --fill_join: cuda and cpu outputs differ in {diffs}")
+    if not same_outputs(f"{data}/cuda_fj", f"{data}/cuda"):
+        fail("200 kb --fill_join: the small-K graph is the same as without it")
+    edges = [len(np.load(f"{data}/{x}/{SMALL_K[0]}")["inv"]) for x in ("cuda", "cuda_fj")]
+    say("fill_join_200kb", genome=FILL_JOIN["glen"], pairs=FILL_JOIN["pairs"],
+        synth_s=f"{gen_s:.1f}", cuda_s=f"{times['cuda_fj']:.2f}",
+        cpu_s=f"{times['cpu_fj']:.2f}", cuda_plain_s=f"{times['cuda']:.2f}",
+        edges_plain=edges[0], edges_fill_join=edges[1], kmers_fill_join=kmers,
+        launches=json.dumps(launches), identical=True, changed=True, **split)
+
+
+def phase_step4(data: str) -> tuple[dict, int, list]:
     """Steps 1-4 at K=260 under lax, radix, then pallas; returns each
-    run's launches and the step-3 stream's row count."""
+    run's launches, the step-3 stream's row count and the planes step 3
+    of the radix run sorted (with num_keys and cmp_keys)."""
     os.environ["W2RAP_TIMELOG"] = "1"
     rows = {}
+    step3_stream = []
     step3 = {}
     orig_count = tke.count_kmers_flat
     orig_repath = step3_repath.repath
 
     def count_flat(flat, seg, k, *a, **kw):
         rows["k2"] = max(len(flat) - k + 1, 0)
-        return orig_count(flat, seg, k, *a, **kw)
+        if os.environ.get("W2RAP_SORT") != "radix":
+            return orig_count(flat, seg, k, *a, **kw)
+        # the planes step 3's count hands to the partition sort
+        orig_sort = radix.partition_sort
+
+        def partition_sort(planes, *pa, **pkw):
+            step3_stream[:] = [planes.clone(), pkw["num_keys"], pkw["cmp_keys"]]
+            return orig_sort(planes, *pa, **pkw)
+
+        radix.partition_sort = partition_sort
+        try:
+            return orig_count(flat, seg, k, *a, **kw)
+        finally:
+            radix.partition_sort = orig_sort
 
     def repath(*a, **kw):
         before = dict(tdev.LAUNCHES)
@@ -1165,7 +1317,9 @@ def phase_step4(data: str) -> tuple[dict, int]:
         if diffs:
             fail(f"E. coli K=260: lax and {sort} checkpoints differ in {diffs}")
     say("ecoli_k260_identical", lax_vs_radix=True, lax_vs_pallas=True)
-    return runs, rows["k2"]
+    if not step3_stream:
+        fail("step 3 of the radix run did not reach the partition sort")
+    return runs, rows["k2"], step3_stream
 
 
 def phase_ecoli_gaps(work: str) -> dict:
@@ -1281,22 +1435,33 @@ def main():
         phase_parity_step5(work)
         say("phase4c", seconds=f"{time.time() - t0:.1f}")
         t0 = time.time()
+        phase_fill_join(work)
+        say("phase4d", seconds=f"{time.time() - t0:.1f}")
+        t0 = time.time()
         data = f"{work}/ecoli"
         say("synth_ecoli", seconds=f"{synth(data, **ECOLI):.1f}")
-        launches = phase_scale(data)
+        launches, count_peak = phase_scale(data)
         say("phase5", seconds=f"{time.time() - t0:.1f}")
         t0 = time.time()
-        runs, k2_rows = phase_step4(data)
+        phase_batched(data, launches, count_peak)
+        say("phase5b", seconds=f"{time.time() - t0:.1f}")
+        t0 = time.time()
+        runs, k2_rows, step3_stream = phase_step4(data)
         say("phase6", seconds=f"{time.time() - t0:.1f}")
         t0 = time.time()
         phase_ecoli_gaps(work)
         say("phase7", seconds=f"{time.time() - t0:.1f}")
 
-    # 3b (b): step 3's shape at K=260, 17 key words with ctx in the pad bits
+    # 3b (b): step 3's shape at K=260, 17 key words with ctx in the pad
+    # bits: the synthetic stream (8% sentinel rows mid-stream), then the
+    # planes step 3 sorted in phase 6 (a few padding rows a tile)
     t0 = time.time()
     planes = kmer_stream(17, -(-k2_rows // T) * T, SEED + 17, False, 2)
     check_radix("step3_W17", planes, 17, 4)
     del planes
+    torch.cuda.empty_cache()
+    check_radix("step3_own", *step3_stream)
+    del step3_stream
     torch.cuda.empty_cache()
     say("phase3b_b", seconds=f"{time.time() - t0:.1f}")
 

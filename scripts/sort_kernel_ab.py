@@ -3,7 +3,7 @@ radix merge level) and K2 (collapse) checked and timed in one process on
 one GPU, optionally beside another checkout's.
 
     python3 scripts/sort_kernel_ab.py [--parent DIR ...] [--rounds 2]
-        [--kernels k4a k3 k4d k2]
+        [--kernels k4a k4b k3 k4d k2]
 
 Prints each kernel's registers, spilled (local) bytes and static shared
 memory at R = 2, 4, 8, 16 rows a thread (cudaFuncGetAttributes); holds
@@ -38,6 +38,15 @@ regions; W=4 at 16M rows with a 100k-row run of one ctx) at tiles of
 variant is this checkout's csrc/ with one constant changed, built from a
 copy under csrc/build/variants/.
 
+K4b (--kernels k4b): registers and spills, then this checkout's kernel
+and the DIRs' against the plain version on 72 small cases (tiles of
+128, 2048 and 8192 rows; cmp_keys 1-4 below and at num_keys; 8%
+sentinel rows mid-stream, the port's own stream layout with a few
+padding rows a tile, ambiguous rows, a skewed stream whose slots
+overflow), then all of them timed in turns at step 2's shape and at
+step 3's, on the synthetic stream and on the port's own layout of it
+(20 launches between two events at step 3's shape, 3 at step 2's).
+
 The port runs each kernel at the R that `bitonic.tile_geometry` takes
 from the tile; the other R are the kernels' own template instances,
 launched here through their C entry points.
@@ -62,6 +71,7 @@ import chip_smoke as cs  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import bitkmer as bk  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import _build, bitonic, radix  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import collapse as kcol  # noqa: E402
+from w2rap_contigger_tpu_torch.ops import kmer_engine as tke  # noqa: E402
 
 STEP3_K2_ROWS = 4_599_661  # E. coli K=260 K2 rows (chip_smoke.py phase 6)
 RS = (2, 4, 8, 16)
@@ -435,6 +445,98 @@ def check_small_k4d_k2(libs: dict) -> None:
     cs.say("small", kernels="K4d,K2", libraries=",".join(libs), cases=cases, identical=True)
 
 
+def own_layout(planes, W: int, T: int) -> torch.Tensor:
+    """planes as the port's counting stream lays them out under radix
+    (kmer_engine.Stream): rows all ones in the W key words (invalid
+    windows) dropped, a few padding rows at the end of each T-row tile."""
+    return tke.spread_padding(planes[:, ~(planes[:W] == -1).all(dim=0)], W, T)
+
+
+def k4b_args(planes, num_keys: int, cmp_keys: int, tile_rows=None, n_bins=None):
+    """K4b's arguments for planes: the sorted tiles (K4a) and splitters."""
+    T, n_tiles, nb, cap, region = radix.geometry(planes.shape[1], tile_rows, n_bins)
+    s = radix.tile_sort(planes, cmp_keys, T)
+    sp = radix.splitters(s[0], s[1], T, nb)
+    return (planes, *s, *sp, num_keys, cmp_keys, T, nb, cap)
+
+
+def partition_with(entry, planes, s_hi, s_lo, s_idx, sp_hi, sp_lo, num_keys: int,
+                   cmp_keys: int, T: int, n_bins: int, cap: int):
+    """radix.partition through another build's C entry point (not counted
+    as a launch of the port)."""
+    n = planes.shape[1]
+    region = (n // T) * cap
+    r_hi, r_lo, r_idx = (torch.empty(n_bins * region, dtype=d, device=planes.device)
+                         for d in (torch.int64, torch.int64, torch.int32))
+    overflow = torch.zeros(1, dtype=torch.int32, device=planes.device)
+    err = entry(
+        planes.data_ptr(), n, num_keys, cmp_keys, T, n_bins, cap,
+        sp_hi.data_ptr(), sp_lo.data_ptr(), s_hi.data_ptr(), s_lo.data_ptr(),
+        s_idx.data_ptr(), r_hi.data_ptr(), r_lo.data_ptr(), r_idx.data_ptr(),
+        region, overflow.data_ptr(), _stream())
+    _build.check(err, "w2rap_radix_partition")
+    return r_hi, r_lo, r_idx, overflow
+
+
+def check_small_k4b(libs: dict) -> None:
+    """K4b of each library against the plain version on small
+    streams: tiles of 128, 2048 and 8192 rows (1, 4 and 16 bins), odd
+    tile counts, cmp_keys 1-4 below and at num_keys; 8% sentinel rows
+    mid-stream, the port's own layout (a few padding rows a tile), real
+    rows all ones in their comparator words (ambiguous), and a skewed
+    stream whose slots overflow (at 4 and 16 bins)."""
+    cases = 0
+    for T, tiles in ((128, 5), (2048, 3), (8192, 3)):
+        n = T * tiles
+        for W, cmp_keys, payload in ((4, 4, True), (5, 4, True), (17, 4, False),
+                                     (13, 2, True), (2, 1, True), (3, 3, False)):
+            base = cs.kmer_stream(W, n, cs.SEED + T + W, payload, 3)
+            streams = {"sentinels": base}
+            streams["own"] = own_layout(base, W, T)
+            amb = base.clone()
+            amb[:cmp_keys, 7 :: 97] = -1
+            streams["ambiguous"] = amb
+            skew = base.clone()
+            skew[:W, ::2] = 12345
+            streams["skewed"] = skew
+            for label, planes in streams.items():
+                args = k4b_args(planes, W, cmp_keys, T // radix.LANES)
+                want = radix.partition_plain(*args)
+                for name, lib in libs.items():
+                    got = partition_with(lib.w2rap_radix_partition, *args)
+                    if not same(got, want):
+                        cs.fail(f"K4b {name} T={T} W={W} cmp_keys={cmp_keys} "
+                                f"{label} differs from its plain version")
+                if label == "skewed" and T >= 2048 and int(want[3][0]) == 0:
+                    cs.fail(f"K4b T={T} W={W}: the skewed stream did not overflow")
+                cases += 1
+    cs.say("small", kernels="K4b", libraries=",".join(libs), cases=cases, identical=True)
+
+
+def repeat(fn, reps: int) -> None:
+    for _ in range(reps):
+        fn()
+
+
+def time_k4b(label: str, planes, num_keys: int, libs: dict, rounds: int,
+             reps: int) -> None:
+    """K4b of each library on one stream, checked against the plain
+    version and timed in turns, `reps` launches between two events."""
+    args = k4b_args(planes, num_keys, 4)
+    want = radix.partition_plain(*args)
+    fns = {}
+    for name, lib in libs.items():
+        fn = lambda lib=lib: partition_with(lib.w2rap_radix_partition, *args)  # noqa: E731
+        if not same(fn(), want):
+            cs.fail(f"K4b {label} {name} differs from its plain version")
+        fns[name] = event_ms(lambda fn=fn: repeat(fn, reps))
+    del want
+    torch.cuda.empty_cache()
+    for k, ms in turns(fns, rounds).items():
+        cs.say("k4b_time", case=label, rows=planes.shape[1], variant=k,
+               ms=f"{ms / reps:.4f}")
+
+
 def attrs_of(lib, entry: str) -> dict:
     """Registers, spilled bytes and static shared memory of a kernel of
     lib (this checkout's or a variant's) through its `*_attrs` entry."""
@@ -449,7 +551,7 @@ def main():
                     help="unpacked checkouts of other commits of the port")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", nargs="+", default=["k4a", "k3", "k4d", "k2"],
-                    choices=["k4a", "k3", "k4d", "k2"])
+                    choices=["k4a", "k4b", "k3", "k4d", "k2"])
     ap.add_argument("--small", action="store_true",
                     help="K4d and K2: attributes and the small checks only")
     args = ap.parse_args()
@@ -458,6 +560,23 @@ def main():
     lib = _build.library()
     libs = {"new": lib, **{os.path.basename(os.path.normpath(d)): load_parent(d)
                            for d in args.parent}}
+    if "k4b" in args.kernels:
+        for name, vlib in libs.items():
+            if hasattr(vlib, "w2rap_radix_partition_attrs"):
+                cs.say("attrs", kernel="radix_partition", variant=name,
+                       **attrs_of(vlib, "w2rap_radix_partition_attrs"))
+        check_small_k4b(libs)
+        T = radix.DEFAULT_TILE_ROWS * radix.LANES
+        for label, W, rows, payload, copies in (
+                ("step2_W4", 4, cs.STEP2_ROWS, True, 45),
+                ("step3_W17", 17, STEP3_K2_ROWS, False, 2),
+                ("step3_W17_own", 17, STEP3_K2_ROWS, False, 2)):
+            planes = cs.kmer_stream(W, -(-rows // T) * T, cs.SEED + W, payload, copies)
+            if label.endswith("_own"):
+                planes = own_layout(planes, W, T)
+            time_k4b(label, planes, W, libs, args.rounds, 3 if W == 4 else 20)
+            del planes
+            torch.cuda.empty_cache()
     if "k4d" in args.kernels or "k2" in args.kernels:
         variants = {v: build_variant(v) for v in VARIANTS
                     if v.split("_")[0] in args.kernels}

@@ -1,7 +1,11 @@
 """Device counting (K1 -> sort -> K2 -> compaction) of the port on
 the CPU, under each sort back end, against the JAX package's count_kmers_device with its Pallas
-kernels in interpret mode: dictionary words, counts, contexts and the
-101-bin histogram.  Tolerance: exact equality."""
+kernels in interpret mode, and range-batched counting (-d, -m,
+--tmp_dir) against the JAX package's count_kmers_batched: dictionary
+words, counts, contexts and the 101-bin histogram.  Tolerance: exact
+equality."""
+
+import os
 
 import numpy as np
 import pytest
@@ -67,14 +71,99 @@ def test_dict_state_round_trip(rng):
         assert a.dtype == b.dtype
 
 
-def test_batched_counting_raises_not_implemented(rng):
-    bases, lengths, quals = _reads(rng, 60)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tke.count_kmers_batched(bases, lengths, quals, 60, disk_batches=2,
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tke.count_kmers_batched(bases, lengths, quals, 60, max_mem_gb=0,
-                                device="cpu")
+@pytest.fixture(scope="module")
+def batch_case():
+    """Reads for the range-batched tests (1024 reads of 100 bases over a
+    4 kb genome, with errors: 42k k=60 rows, the 4 ranges of -d 4 holding
+    18k, 13k, 7.7k and 2.6k), and the JAX package's unbatched count of
+    them (on the CPU its native spill)."""
+    rng = np.random.default_rng(7)
+    L = 100
+    genome = rng.integers(0, 4, size=4000).astype(np.uint8)
+    starts = rng.integers(0, len(genome) - L, size=1024)
+    bases = np.stack([genome[s : s + L] for s in starts])
+    err = rng.random(bases.shape) < 0.004
+    bases[err] = (bases[err] + 1) % 4
+    lengths = np.full(len(starts), L, np.int32)
+    quals = np.full(bases.shape, 35, np.uint8)
+    quals[rng.random(bases.shape) < 0.002] = 2
+    return bases, lengths, quals, ke.count_kmers_batched(bases, lengths, quals, 60,
+                                                         min_freq=2)
+
+
+def _assert_dict(d, hist, jd, jhist):
+    words, counts, ctx = state.dict_to_numpy(d)
+    assert d.size == jd.size > 0
+    np.testing.assert_array_equal(words, jd.words)
+    np.testing.assert_array_equal(counts, jd.counts)
+    np.testing.assert_array_equal(ctx, jd.ctx)
+    np.testing.assert_array_equal(hist, jhist)
+
+
+# case -> (-d, -m, W2RAP_SORT, ranges): -m 0 forces 256 ranges; at -m 2
+# MiB the JAX package's rule takes 2 ranges (2.5 MB estimated), but the
+# first of them holds 31k rows (2.5 MB at count_row_bytes), so the port
+# takes 4, whose largest (18k rows) fits
+BATCH_CASES = {"d2": (2, 10000, "lax", 2), "d4": (4, 10000, "lax", 4),
+               "d8": (8, 10000, "lax", 8), "m0": (0, 0, "lax", 256),
+               "m_ceiling": (0, 2.0 ** -9, "lax", 4),
+               "d4_radix": (4, 10000, "radix", 4), "d4_pallas": (4, 10000, "pallas", 4)}
+
+
+@pytest.mark.parametrize("case", list(BATCH_CASES))
+def test_batched_count_matches_jax(batch_case, monkeypatch, case):
+    """Range batching (-d, -m) under each sort back end: one pass a hash
+    range, the ranges concatenated, against the JAX package's batched
+    count (its native spill on the CPU) and its unbatched count; every
+    range of -d 2/4/8 holds kmers (those >= R/2 need the top bits of word
+    0 taken unsigned)."""
+    from w2rap_contigger_tpu_torch.ops import radix
+
+    disk_batches, max_mem, sort, R = BATCH_CASES[case]
+    bases, lengths, quals, (jd0, jh0) = batch_case
+    jd, jh = ke.count_kmers_batched(bases, lengths, quals, 60, min_freq=2,
+                                    disk_batches=disk_batches, max_mem_gb=max_mem)
+    # 2048-row tiles: ranges 0 and 1 take the partition sort, 2 and 3 lax
+    monkeypatch.setattr(radix, "DEFAULT_TILE_ROWS", 16)
+    monkeypatch.setattr(radix, "DEFAULT_REGION_ROWS", 64)
+    monkeypatch.setenv("W2RAP_SORT", sort)
+    passes, sorts = [], []
+    count_chunks, partition_sort = tke._count_chunks, radix.partition_sort
+    monkeypatch.setattr(tke, "_count_chunks", lambda *a, **kw: passes.append(a[1])
+                        or count_chunks(*a, **kw))
+    monkeypatch.setattr(radix, "partition_sort", lambda p, *a, **kw: sorts.append(p.shape[1])
+                        or partition_sort(p, *a, **kw))
+    recounts = tke.RADIX_RECOUNTS
+    d, hist = tke.count_kmers_batched(bases, lengths, quals, 60, min_freq=2,
+                                      chunk_reads=256, disk_batches=disk_batches,
+                                      max_mem_gb=max_mem, device="cpu")
+    _assert_dict(d, hist, jd, jh)
+    _assert_dict(d, hist, jd0, jh0)
+    assert len(passes) == R and tke.RADIX_RECOUNTS == recounts
+    assert len(sorts) == (2 if sort == "radix" else 0)
+    rb = R.bit_length() - 1
+    top = d.host("words")[:, 0] >> np.uint32(32 - rb)
+    if R <= 8:
+        assert set(top.tolist()) == set(range(R))
+    assert (top >= R // 2).sum() > 0
+
+
+def test_batched_spill_leaves_no_file(batch_case, monkeypatch, tmp_path):
+    """-d 4 --tmp_dir: each range's dict goes through its npz file, which
+    is gone afterwards; the dict is the unbatched one."""
+    bases, lengths, quals, (jd0, jh0) = batch_case
+    spill = tmp_path / "spill"
+    saved = []
+    savez = tke.np.savez
+    monkeypatch.setattr(tke.np, "savez", lambda path, **kw: saved.append(path)
+                        or savez(path, **kw))
+    d, hist = tke.count_kmers_batched(bases, lengths, quals, 60, min_freq=2,
+                                      chunk_reads=256, disk_batches=4,
+                                      tmp_dir=str(spill), device="cpu")
+    _assert_dict(d, hist, jd0, jh0)
+    assert [os.path.basename(p) for p in saved] == [
+        f"kmer_range_{ri:04d}.npz" for ri in range(4)]
+    assert os.listdir(spill) == []
 
 
 def test_short_reads_give_empty_dict(rng):

@@ -5,7 +5,8 @@ count of valid rows and each region's rows (lexsorted by all planes, as
 only the order of rows tied on the comparator words may differ); the
 collision flag; the plain phases composed one by one; numpy models of
 K4a's key-index network (csrc/radix.cu on csrc/keyindex_net.cuh) against
-the plain tile sort, of K4c's merge path (csrc/region_merge.cu)
+the plain tile sort, of K4b's slots (a block a tile and bin, warp
+searches) against the plain partition, of K4c's merge path (csrc/region_merge.cu)
 against the plain chunk sort and of K4d's merge path by the block
 (csrc/radix.cu) against the plain merge level; and, on a card, every
 kernel against its plain version.  Tolerance: exact equality."""
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 from w2rap_contigger_tpu.ops import pallas_radix as prad
 from w2rap_contigger_tpu_torch import device as tdev
 from w2rap_contigger_tpu_torch.ops import bitonic, radix
+from w2rap_contigger_tpu_torch.ops import kmer_engine as tke
 from test_torch_bitonic import _key_index_net, _levels
 
 FULL = np.uint32(0xFFFFFFFF)
@@ -313,6 +315,148 @@ def _merge_model(recs, region, C, run):
             x[start:start + ln] = y[_sw(pos[:ln])]
     return [torch.from_numpy(out[0].view(np.int64)), torch.from_numpy(out[1].view(np.int64)),
             torch.from_numpy(out[2].view(np.int32))]
+
+
+MAX64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def _count_below_warp(hi, lo, kh, kl):
+    """radix.cu count_below_warp on every (tile, key) at once: hi, lo
+    (tiles, T) sorted u64 records, kh, kl (tiles,) keys; 32 probes a
+    step, "below" holds on a prefix of the lanes, the ballot's count keeps
+    one gap of the stride.  Returns #records < key of each tile, and the
+    steps taken."""
+    tiles, T = hi.shape
+    lo_i = np.zeros(tiles, np.int64)
+    hi_i = np.full(tiles, T, np.int64)
+    lanes = np.arange(32)
+    steps = 0
+    while (lo_i < hi_i).any():
+        act = lo_i < hi_i
+        s = np.where(act, (hi_i - lo_i + 31) // 32, 1)
+        p = lo_i[:, None] + lanes[None, :] * s[:, None]
+        ok = act[:, None] & (p < hi_i[:, None])
+        pc = np.where(ok, p, 0)
+        ph = np.take_along_axis(hi, pc, 1)
+        pl = np.take_along_axis(lo, pc, 1)
+        below = ok & ((ph < kh[:, None]) | ((ph == kh[:, None]) & (pl < kl[:, None])))
+        c = below.sum(axis=1)
+        assert (below == (lanes[None, :] < c[:, None])).all()  # a prefix: the ballot's count
+        nhi = lo_i + c * s
+        lo_i = np.where(act & (c > 0), lo_i + (c - 1) * s + 1, lo_i)
+        hi_i = np.where(act, np.minimum(nhi, hi_i), hi_i)
+        steps += 1
+    return lo_i, steps
+
+
+def _k4b_model(planes, s_hi, s_lo, s_idx, sp_hi, sp_lo, num_keys, cmp_keys, T,
+               n_bins, cap):
+    """K4b as csrc/radix.cu computes it, in numpy: block (t, b) finds its
+    bin's edges with two warp searches (the last bin's end at the
+    all-ones key, then past the tail's ambiguous rows, counted from the
+    planes), adds its overflow, and stores its slot PART_V = 4 records a
+    thread (the bin's rows, then fill)."""
+    P = planes.numpy().view(np.uint32)
+    n = P.shape[1]
+    n_tiles = n // T
+    region = n_tiles * cap
+    hi = s_hi.numpy().view(np.uint64).reshape(n_tiles, T)
+    lo = s_lo.numpy().view(np.uint64).reshape(n_tiles, T)
+    idx = s_idx.numpy().view(np.uint32).reshape(n_tiles, T)
+    sph, spl = sp_hi.numpy().view(np.uint64), sp_lo.numpy().view(np.uint64)
+    ones_h = MAX64 if cmp_keys >= 2 else MAX64 << np.uint64(32)
+    ones_l = MAX64 if cmp_keys >= 4 else (MAX64 << np.uint64(32) if cmp_keys == 3
+                                          else np.uint64(0))
+    edges = np.zeros((n_tiles, n_bins + 1), np.int64)
+    steps = 0
+    for b in range(n_bins):  # edges[:, b + 1]: #records < splitter b (all ones: the last)
+        kh = np.full(n_tiles, sph[b] if b < n_bins - 1 else ones_h, np.uint64)
+        kl = np.full(n_tiles, spl[b] if b < n_bins - 1 else ones_l, np.uint64)
+        edges[:, b + 1], st = _count_below_warp(hi, lo, kh, kl)
+        steps = max(steps, st)
+    assert steps <= int(np.ceil(np.log(T + 1) / np.log(33))) + 1
+    n_full = T - edges[:, n_bins]
+    ov = 0
+    for t in range(n_tiles):  # the last bin's block: the tail's sentinel rows
+        tail = idx[t, T - n_full[t]:]
+        sent = (P[cmp_keys:num_keys][:, tail] == 0xFFFFFFFF).all(axis=0)
+        n_sent = int(sent.sum())
+        edges[t, n_bins] = T - n_sent
+        ov += int(n_full[t]) - n_sent
+    cnt = edges[:, 1:] - edges[:, :-1]
+    ov += int((cnt > cap - 128).sum())
+    take = np.clip(cnt, 0, cap)
+    r = [np.full(n_bins * region, MAX64, np.uint64), np.full(n_bins * region, MAX64, np.uint64),
+         np.full(n_bins * region, 0xFFFFFFFF, np.uint32)]
+    for t in range(n_tiles):
+        for b in range(n_bins):
+            dst0 = b * region + t * cap
+            assert dst0 % 4 == 0  # the slot's 16-byte vector stores
+            for j in range(0, cap, 4):
+                u = j + np.arange(4)
+                inn = u < take[t, b]
+                src = np.where(inn, edges[t, b] + u, 0)
+                for x, y, f in zip(r, (hi[t], lo[t], idx[t]), (MAX64, MAX64, 0xFFFFFFFF)):
+                    x[dst0 + u] = np.where(inn, y[src], f)
+    return (torch.from_numpy(r[0].view(np.int64)), torch.from_numpy(r[1].view(np.int64)),
+            torch.from_numpy(r[2].view(np.int32)), torch.tensor([ov], dtype=torch.int32))
+
+
+def _own_layout(rng, n, w):
+    """The port's radix stream (kmer_engine.Stream): no invalid row (the
+    stream drops them), n - 10 real rows, the 10 padding rows spread at
+    the ends of the 2048-row tiles."""
+    real = torch.from_numpy(_stream(rng, n - 10, w, sentinel_frac=0.0).view(np.int32))
+    return tke.spread_padding(real, w, 2048).numpy().view(np.uint32)
+
+
+K4B_CASES = {
+    # (make, n, w, cmp_keys, tile_rows, n_bins): 10% sentinel rows
+    # (every tile's tail checked against 9 later key words), the port's
+    # own layout, real rows all ones in their comparator words, one slot
+    # a tile overflowing, and one bin
+    "sentinel_tails": (_stream, 3 * 2048, 13, 4, 16, 4),
+    "own_layout": (_own_layout, 3 * 2048, 13, 4, 16, 4),
+    "ambiguous": (_ambiguous, 2 * 4096, 13, 2, 32, 8),
+    "overflowing_slot": (_overflowing, 2 * 2048, 4, 4, 16, 4),
+    "one_bin": (_stream, 5 * 128, 5, 3, 1, 1),
+}
+
+
+def _k4b_args(rng, case):
+    make, n, w, cmp_keys, tile_rows, n_bins = K4B_CASES[case]
+    planes = torch.from_numpy(np.ascontiguousarray(make(rng, n, w)).view(np.int32))
+    T, n_tiles, nb, cap, region = radix.geometry(planes.shape[1], tile_rows, n_bins)
+    s = radix.tile_sort_plain(planes, cmp_keys, T)
+    sp = radix.splitters(s[0], s[1], T, nb)
+    return (planes, *s, *sp, w, cmp_keys, T, nb, cap)
+
+
+@pytest.mark.parametrize("case", list(K4B_CASES))
+def test_k4b_model_matches_plain(rng, case):
+    args = _k4b_args(rng, case)
+    want = radix.partition_plain(*args)
+    got = _k4b_model(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    overflow = int(want[3][0])
+    assert (overflow > 0) == (case in ("ambiguous", "overflowing_slot"))
+    if case == "own_layout":  # a few padding rows a tile, no sentinel mid-tile
+        planes, T = args[0], args[8]
+        pad = (planes[:13] == -1).all(dim=0).reshape(-1, T)
+        assert 0 < int(pad.sum(dim=1).max()) < 8 and pad[:, : T // 2].sum() == 0
+
+
+@pytest.mark.cuda
+def test_k4b_kernel_matches_plain(rng):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    for case in K4B_CASES:
+        args = [a.cuda() if torch.is_tensor(a) else a for a in _k4b_args(rng, case)]
+        before = tdev.LAUNCHES["radix_partition"]
+        got = radix.partition(*args)
+        want = radix.partition_plain(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert tdev.LAUNCHES["radix_partition"] == before + 1
 
 
 def _slots(rng, n, w, tile_rows, n_bins, make=None):

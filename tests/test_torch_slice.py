@@ -53,7 +53,8 @@ def test_step2_cli_matches_jax_pipeline(fastq, tmp_path):
 
 def test_cli_refuses_what_is_not_ported(fastq, tmp_path, monkeypatch):
     out = str(tmp_path)
-    # steps 6-7 and --dev_run_test are ported; sharding is not
+    # steps 6-7, --dev_run_test, -d/-m/--tmp_dir and --fill_join are
+    # ported; sharding is not
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(["-r", fastq, "-o", out, "--to_step", "6", "--device", "cpu",
                   "--shard", "2"])
@@ -65,9 +66,10 @@ def test_cli_refuses_what_is_not_ported(fastq, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="lax, radix or pallas"):
         cli.main(["-r", fastq, "-o", out, "--to_step", "2", "--device", "cpu"])
     monkeypatch.delenv("W2RAP_SORT")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["-r", fastq, "-o", out, "--to_step", "2", "--device", "cpu",
-                  "--fill_join"])
+    # range batching with a spill directory and the fill/join passes run
+    hbv, paths, d = cli.main(["-r", fastq, "-o", out, "--to_step", "2", "--device", "cpu",
+                              "--fill_join", "-d", "4", "--tmp_dir", f"{out}/tmp"])
+    assert hbv.n_edges > 0 and d.size > 0 and os.listdir(f"{out}/tmp") == []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="never falls back"):
         tdev.resolve_device("cuda")
@@ -94,9 +96,10 @@ def test_port_imports_no_jax():
         "for n in names + ['chip_smoke']: importlib.import_module(n)\n"
         "assert not any(m.split('.')[0] in ('jax', 'w2rap_contigger_tpu')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "assert 'w2rap_contigger_tpu_torch.graph.gapfill' in names\n"
         "print(len(names))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 64
+    assert int(res.stdout.strip()) >= 65

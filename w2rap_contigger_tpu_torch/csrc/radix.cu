@@ -7,8 +7,8 @@
 //       -> tile_sort_kernel: one block sorts one tile of T rows with the
 //          key-index network of keyindex_net.cuh;
 //   K4b _partition_kernel (:221, launched :386)
-//       -> partition_kernel: one block cuts one sorted tile into its
-//          per-bin slots;
+//       -> partition_kernel: one block cuts one bin of one sorted tile
+//          into its slot;
 //   K4c _tile_sort_dyn_kernel (:108, launched :422)
 //       -> region_merge.cu: one block merges the sorted runs of one chunk
 //          of a bin region;
@@ -30,16 +30,22 @@
 //      the tile's cmp_keys planes in shared memory (128 KB at T = 8192
 //      and cmp_keys 4, + 32 KB of index buffers), (tile row, word 0)
 //      pairs through the network, each record written once.
-//   2. partition_kernel: s_b = #records < splitter_b by binary search in
-//      the sorted tile, s_0 = 0, s_B = #non-sentinel rows (a sentinel row
-//      is all ones in all num_keys words; such rows sort to the tile's
-//      tail, and only the tail's words past cmp_keys are read from the
-//      planes, none when cmp_keys == num_keys); rows [s_b, s_{b+1}) (at most
-//      cap) go to slot (bin b, tile t) of cap records, the rest of the slot
-//      is fill.  overflow += slots holding more than cap - 128 rows, plus
-//      real rows whose cmp_keys words are all ones (pallas_radix.py:
-//      252-275, 306-311): the flag is the TPU kernel's exactly.  Every slot
-//      is therefore a sorted run: a tile's sorted rows, then fill.
+//   2. partition_kernel, one block a (tile t, bin b): s_b = #records <
+//      splitter_{b-1} and s_{b+1} by two warp searches (32 probes a step)
+//      in the sorted tile, s_0 = 0, s_B = #non-sentinel rows (a sentinel
+//      row is all ones in all num_keys words; such rows sort to the
+//      tile's tail, and only the tail's words past cmp_keys are read from
+//      the planes, by the last bin's block, none when cmp_keys ==
+//      num_keys); rows [s_b, s_{b+1}) (at most cap) go to slot (bin b,
+//      tile t) of cap records, the rest of the slot is fill, stored as
+//      16-byte vectors.  overflow += slots holding more than cap - 128
+//      rows, plus real rows whose cmp_keys words are all ones
+//      (pallas_radix.py: 252-275, 306-311): the flag is the TPU kernel's
+//      exactly.  Every slot is therefore a sorted run: a tile's sorted
+//      rows, then fill.  The first form (one block a tile, 16 bins' copies
+//      in turn after 13-step binary searches in 16 threads) had one
+//      partial wave of long blocks at step 3's shape, 562 tiles: 44% of
+//      its bound.
 //   3. region_merge.cu: every chunk of C records of a region (C / cap
 //      slots) merged into one sorted run.
 //   4. merge_pass_kernel, width C, 2C, ... below the region: runs 2p and
@@ -74,6 +80,8 @@
 namespace {
 
 constexpr int PART_THREADS = 256;
+constexpr int PART_V = 4;  // K4b: slot records a thread stores a step
+static_assert(PART_V == 4, "K4b stores 2 x 16 B of hi and of lo, 16 B of idx");
 constexpr int MERGE_THREADS = 256;
 // K4d: records a thread merges a level (64 registers); P = 16 (120
 // registers) was 4-9% slower at the first level of step 2's and step 3's
@@ -122,7 +130,35 @@ const void* tile_sort_fn(int R) {
                    : nullptr;
 }
 
-// K4b: cut one sorted tile into its n_bins slots of cap records.
+// K4b: block (t, b) cuts bin b of sorted tile t into its slot of cap
+// records (blocks of one tile are neighbours in launch order, so the
+// tile's probed records are shared in L2).
+//
+// Count of the tile's records below the key (kh, kl), on (hi, lo) only:
+// one warp, 32 probes a step (lane l tests record lo + l*s; "below"
+// holds on a prefix of the lanes, and the ballot's count keeps the one
+// gap of s that holds the answer): 3 steps at T = 8192, each one round
+// trip for both words.
+__device__ int count_below_warp(const uint64_t* __restrict__ hi,
+                                const uint64_t* __restrict__ lo, int64_t t0,
+                                int T, uint64_t kh, uint64_t kl, int lane) {
+  int l = 0, h = T;
+  while (l < h) {
+    const int s = (h - l + 31) >> 5;
+    const int p = l + lane * s;
+    bool below = false;
+    if (p < h) {
+      const uint64_t ph = hi[t0 + p], pl = lo[t0 + p];
+      below = ph < kh || (ph == kh && pl < kl);
+    }
+    const int c = __popc(__ballot_sync(0xFFFFFFFFu, below));
+    const int nh = l + c * s;
+    l = c ? l + (c - 1) * s + 1 : l;
+    h = nh < h ? nh : h;
+  }
+  return l;
+}
+
 __global__ void __launch_bounds__(PART_THREADS)
 partition_kernel(const uint32_t* __restrict__ planes, int64_t n, int num_keys,
                  int cmp_keys, int T, int n_bins, int cap,
@@ -134,86 +170,99 @@ partition_kernel(const uint32_t* __restrict__ planes, int64_t n, int num_keys,
                  uint64_t* __restrict__ r_hi, uint64_t* __restrict__ r_lo,
                  uint32_t* __restrict__ r_idx, int64_t region,
                  int* __restrict__ overflow) {
-  extern __shared__ int starts[];  // n_bins + 1
-  __shared__ int n_full, n_sent;
-  const int tid = threadIdx.x;
-  const int64_t t = blockIdx.x;
+  __shared__ int edge[2];
+  __shared__ int n_sent;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int64_t t = blockIdx.x / n_bins;
+  const int b = blockIdx.x % n_bins;
   const int64_t t0 = t * T;
+  const bool last = b == n_bins - 1;
   if (tid == 0) n_sent = 0;
 
-  // s_{b+1} = #records < splitter_b, on the (hi, lo) key only; b = n_bins
-  // - 1 searches the all-ones key instead: the rows all ones in their
-  // cmp_keys words (missing words are 0 in every record) sort to the tail
-  for (int b = tid; b < n_bins; b += blockDim.x) {
-    uint64_t kh, kl;
-    if (b < n_bins - 1) {
-      kh = sp_hi[b];
-      kl = sp_lo[b];
-    } else {
-      kh = cmp_keys >= 2 ? MAX64 : MAX64 << 32;
-      kl = cmp_keys >= 4 ? MAX64 : (cmp_keys == 3 ? MAX64 << 32 : 0ull);
-    }
-    int lo_i = 0, hi_i = T;
-    while (lo_i < hi_i) {
-      const int mid = (lo_i + hi_i) >> 1;
-      const uint64_t h = s_hi[t0 + mid];
-      if (h < kh || (h == kh && s_lo[t0 + mid] < kl))
-        lo_i = mid + 1;
-      else
-        hi_i = mid;
-    }
-    if (b < n_bins - 1)
-      starts[b + 1] = lo_i;
-    else
-      n_full = T - lo_i;
-  }
-  __syncthreads();
-
-  // a sentinel row is all ones in all num_keys words: with cmp_keys ==
-  // num_keys every tail row is one, else the tail rows' later key words
-  // are read (the only plane reads here); the other tail rows are
-  // "ambiguous" real rows that tie with the sentinels
-  if (cmp_keys < num_keys) {
-    int sent_c = 0;
-    for (int i = T - n_full + tid; i < T; i += blockDim.x) {
-      const int64_t row = s_idx[t0 + i];
-      bool sent = true;
-      for (int j = cmp_keys; j < num_keys && sent; ++j)
-        sent &= planes[j * n + row] == FULL;
-      sent_c += sent;
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      sent_c += __shfl_down_sync(0xFFFFFFFFu, sent_c, off);
-    if ((tid & 31) == 0 && sent_c) atomicAdd(&n_sent, sent_c);
-  } else if (tid == 0) {
-    n_sent = n_full;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    starts[0] = 0;
-    starts[n_bins] = T - n_sent;
-    int ov = n_full - n_sent;
-    for (int b = 0; b < n_bins; ++b)
-      ov += starts[b + 1] - starts[b] > cap - 128 ? 1 : 0;
-    if (ov) atomicAdd(overflow, ov);
-  }
-  __syncthreads();
-
-  for (int b = 0; b < n_bins; ++b) {
-    const int s_b = starts[b];
-    const int take = max(0, min(starts[b + 1] - s_b, cap));
-    const int64_t dst0 = (int64_t)b * region + t * cap;
-    for (int j = tid; j < cap; j += blockDim.x) {
-      if (j < take) {
-        const int64_t src = t0 + s_b + j;
-        r_hi[dst0 + j] = s_hi[src];
-        r_lo[dst0 + j] = s_lo[src];
-        r_idx[dst0 + j] = s_idx[src];
+  // warp 0: the bin's first row, #records < splitter b - 1 (0 for bin
+  // 0); warp 1: its end, #records < splitter b, or for the last bin
+  // #records < the all-ones key (missing words are 0 in every record):
+  // the rows all ones in their cmp_keys words sort to the tile's tail
+  const int which = tid >> 5;
+  if (which < 2) {
+    const int sb = b - 1 + which;
+    int v = 0;
+    if (sb >= 0) {
+      uint64_t kh, kl;
+      if (sb < n_bins - 1) {
+        kh = sp_hi[sb];
+        kl = sp_lo[sb];
       } else {
-        r_hi[dst0 + j] = MAX64;
-        r_lo[dst0 + j] = MAX64;
-        r_idx[dst0 + j] = FILL_IDX;
+        kh = cmp_keys >= 2 ? MAX64 : MAX64 << 32;
+        kl = cmp_keys >= 4 ? MAX64 : (cmp_keys == 3 ? MAX64 << 32 : 0ull);
       }
+      v = count_below_warp(s_hi, s_lo, t0, T, kh, kl, lane);
+    }
+    if (lane == 0) edge[which] = v;
+  }
+  __syncthreads();
+  const int start = edge[0];
+  int end = edge[1];
+  int ov = 0;
+
+  // the last bin ends at the tile's sentinels: a sentinel row is all
+  // ones in all num_keys words, so with cmp_keys == num_keys every tail
+  // row is one; else the tail rows' later key words are read (the only
+  // plane reads here, every word of a row issued at once) and the other
+  // tail rows are "ambiguous" real rows that tie with the sentinels
+  if (last) {
+    const int n_full = T - end;
+    if (cmp_keys < num_keys) {
+      int sent_c = 0;
+      for (int i = end + tid; i < T; i += blockDim.x) {
+        const int64_t row = s_idx[t0 + i];
+        bool sent = true;
+#pragma unroll 4
+        for (int j = cmp_keys; j < num_keys; ++j)
+          sent &= planes[j * n + row] == FULL;
+        sent_c += sent;
+      }
+      for (int off = 16; off > 0; off >>= 1)
+        sent_c += __shfl_down_sync(0xFFFFFFFFu, sent_c, off);
+      if (lane == 0 && sent_c) atomicAdd(&n_sent, sent_c);
+      __syncthreads();
+      end = T - n_sent;
+    } else {
+      end = T - n_full;
+    }
+    ov = n_full - (T - end);
+  }
+  ov += end - start > cap - 128 ? 1 : 0;
+  if (tid == 0 && ov) atomicAdd(overflow, ov);
+
+  // the slot: the bin's rows (at most cap), then fill, as 16-byte
+  // vectors, so that every store of a warp writes 512 contiguous bytes:
+  // of the 4 * blockDim.x slot records of a step, thread t stores hi and
+  // lo of records 2t, 2t + 1 and 2t + 2 * blockDim.x, + 1, and idx of
+  // records 4t .. 4t + 3 (the slot starts at a multiple of cap, a
+  // multiple of 4); the reads, at the bin's start, are coalesced scalars
+  const int take = max(0, min(end - start, cap));
+  const int64_t src0 = t0 + start;
+  const int64_t dst0 = (int64_t)b * region + t * cap;
+  for (int j0 = 0; j0 < cap; j0 += blockDim.x * PART_V) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int a = j0 + 2 * tid + q * 2 * blockDim.x;
+      if (a < cap) {
+        const bool i0 = a < take, i1 = a + 1 < take;
+        *reinterpret_cast<ulonglong2*>(r_hi + dst0 + a) = make_ulonglong2(
+            i0 ? s_hi[src0 + a] : MAX64, i1 ? s_hi[src0 + a + 1] : MAX64);
+        *reinterpret_cast<ulonglong2*>(r_lo + dst0 + a) = make_ulonglong2(
+            i0 ? s_lo[src0 + a] : MAX64, i1 ? s_lo[src0 + a + 1] : MAX64);
+      }
+    }
+    const int e = j0 + PART_V * tid;
+    if (e < cap) {
+      uint32_t x[PART_V];
+#pragma unroll
+      for (int u = 0; u < PART_V; ++u)
+        x[u] = e + u < take ? s_idx[src0 + e + u] : FILL_IDX;
+      *reinterpret_cast<uint4*>(r_idx + dst0 + e) = make_uint4(x[0], x[1], x[2], x[3]);
     }
   }
 }
@@ -473,16 +522,24 @@ extern "C" int w2rap_radix_tile_sort_attrs(int R, int* attrs) {
 }
 
 // sp_hi/sp_lo: (n_bins-1,) splitter keys; s_*: the sorted tiles' records;
-// r_*: (n_bins * region,) slot records out, region = (n/T) * cap;
-// overflow: one int, zeroed by the caller.  Returns cudaGetLastError().
+// r_*: (n_bins * region,) slot records out, region = (n/T) * cap, 16-byte
+// aligned; cap a multiple of 4; overflow: one int, zeroed by the caller.
+// One block a (tile, bin).  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int w2rap_radix_partition(
     const void* planes, int64_t n, int num_keys, int cmp_keys, int T,
     int n_bins, int cap, const void* sp_hi, const void* sp_lo,
     const void* s_hi, const void* s_lo, const void* s_idx, void* r_hi,
     void* r_lo, void* r_idx, int64_t region, void* overflow, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  partition_kernel<<<(unsigned)(n / T), PART_THREADS,
-                     (n_bins + 1) * sizeof(int),
+  auto misaligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if (cap % PART_V || n % T || n_bins < 1 || misaligned(r_hi) ||
+      misaligned(r_lo) || misaligned(r_idx))
+    return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (n / T) * n_bins;
+  partition_kernel<<<(unsigned)blocks, PART_THREADS, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(planes), n, num_keys, cmp_keys, T, n_bins,
       cap, static_cast<const uint64_t*>(sp_hi),
@@ -492,6 +549,12 @@ extern "C" int w2rap_radix_partition(
       static_cast<uint64_t*>(r_lo), static_cast<uint32_t*>(r_idx), region,
       static_cast<int*>(overflow));
   return (int)cudaGetLastError();
+}
+
+// attrs[0..3] = registers a thread, local (spilled) bytes a thread, static
+// shared bytes, most threads a block, of K4b's kernel.
+extern "C" int w2rap_radix_partition_attrs(int* attrs) {
+  return net_attrs((const void*)partition_kernel, attrs);
 }
 
 // s_* -> d_* (or, final, the gathered planes into out), one merge level

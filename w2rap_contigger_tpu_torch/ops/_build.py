@@ -47,6 +47,7 @@ _SIGNATURES = {
     "w2rap_radix_tile_sort_attrs": [_I32, _P],
     "w2rap_radix_partition": [_P, _I64, _I32, _I32, _I32, _I32, _I32,
                               _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
+    "w2rap_radix_partition_attrs": [_P],
     "w2rap_radix_region_sort": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32,
                                 _I32, _I32, _I32, _I32, _P, _I64, _I32, _I32,
                                 _P, _P],

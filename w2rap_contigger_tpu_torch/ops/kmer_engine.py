@@ -23,6 +23,13 @@ The chain, per the reference's createDictOMPRecursive
         --global compaction (torch gather, _compact_planes_dev :1293)-->
         sorted dictionary + 101-bin histogram (low bins from K2, :1399)
 
+Range batching (`count_kmers_batched`, -d / -m): the reads are packed
+and uploaded once, one K1 pass counts the rows of each hash range (the
+top bits of word 0), and each range is a pass of its own: K1 again, a
+stream of only that range's rows, the sort and K2, each on the device.
+The ranges' dictionaries, spilled to --tmp_dir or kept, concatenate in
+range order into the unbatched dictionary.
+
 Step 5's blob-local graphs count on the host instead (`count_kmers_flat
 (..., host=True)`, :663-713 and :836-885): the C++ leaf
 `native/count_kernel.cc` kmerizes, sorts and collapses segment batches,
@@ -210,7 +217,8 @@ class Stream:
     there (:1253-1262, comparator words at W <= 2).
     """
 
-    def __init__(self, capacity: int, W: int, k: int, backend: str, dev):
+    def __init__(self, capacity: int, W: int, k: int, backend: str, dev,
+                 range_bits: int = 0, range_index: int = 0):
         self.W = W
         self.backend = backend
         self.ctx_in_pad = 2 * (16 * W - k) >= 8 and backend != "pallas" and not (
@@ -218,12 +226,17 @@ class Stream:
         self.buf = torch.empty((W if self.ctx_in_pad else W + 1, capacity),
                                dtype=torch.int32, device=dev)
         self.n = 0
+        self.range_bits = range_bits
+        self.range_index = range_index
 
     def put(self, words: torch.Tensor, ctx: torch.Tensor) -> None:
         """Append the valid kmers of a chunk: words (W, m) and ctx (m,) as
-        raw int32 bits, all-ones words where the window is invalid."""
+        raw int32 bits, all-ones words where the window is invalid.  With
+        range_bits, only the kmers of range range_index stay."""
         W = self.W
         valid = ~(words == -1).all(dim=0)
+        if self.range_bits:
+            valid &= range_of(words[0], self.range_bits) == self.range_index
         if self.ctx_in_pad:
             rows = torch.cat([words[: W - 1], (words[W - 1] | ctx)[None]])
         else:
@@ -249,22 +262,29 @@ class Stream:
             planes[: self.W, n:] = -1
             planes[self.W :, n:] = 0
             return planes, kind
-        T = radix.DEFAULT_TILE_ROWS * radix.LANES
-        n_pad = -(-n // T) * T
-        planes = torch.empty((buf.shape[0], n_pad), dtype=torch.int32, device=buf.device)
-        if n_pad == n:
-            planes.copy_(buf[:, :n])
-            return planes, kind
-        planes[: self.W] = -1
-        planes[self.W :] = 0
-        n_tiles = n_pad // T
-        q, rem = divmod(n_pad - n, n_tiles)
-        # tiles < rem keep T-q-1 real rows at their front, the others T-q
-        b0 = rem * (T - q - 1)
-        i = torch.arange(n, device=buf.device)
-        t = torch.where(i < b0, i // (T - q - 1), rem + (i - b0) // (T - q))
-        planes[:, i + t * q + torch.clamp(t, max=rem)] = buf[:, :n]
-        return planes, kind
+        return spread_padding(buf[:, :n], self.W, radix.DEFAULT_TILE_ROWS * radix.LANES), kind
+
+
+def spread_padding(rows: torch.Tensor, W: int, T: int) -> torch.Tensor:
+    """(num_ops, n) rows -> whole T-row tiles, the padding rows (all ones
+    in the W key planes, 0 in the others) spread a few at the end of each
+    tile: the radix stream's layout (Stream)."""
+    n = rows.shape[1]
+    n_pad = -(-n // T) * T
+    planes = torch.empty((rows.shape[0], n_pad), dtype=torch.int32, device=rows.device)
+    if n_pad == n:
+        planes.copy_(rows)
+        return planes
+    planes[:W] = -1
+    planes[W:] = 0
+    n_tiles = n_pad // T
+    q, rem = divmod(n_pad - n, n_tiles)
+    # tiles < rem keep T-q-1 real rows at their front, the others T-q
+    b0 = rem * (T - q - 1)
+    i = torch.arange(n, device=rows.device)
+    t = torch.where(i < b0, i // (T - q - 1), rem + (i - b0) // (T - q))
+    planes[:, i + t * q + torch.clamp(t, max=rem)] = rows
+    return planes
 
 
 def _strip_ctx(sp: torch.Tensor) -> torch.Tensor:
@@ -336,24 +356,20 @@ def count_epilogue(stream: Stream, k: int, min_freq: int, span: str):
         return dict_from_collapsed(collapse(sp, min_count=min_freq), W, k, min_freq)
 
 
-def count_kmers_device(bases, lengths, quals, k: int, min_qual: int = 7,
-                       min_freq: int = 4, chunk_reads: int = 65536,
-                       device="cuda", span: str = "step2.count"):
-    """Count canonical kmers on `device`; returns (KmerDict, hist).
+def range_of(w0: torch.Tensor, range_bits: int) -> torch.Tensor:
+    """Hash range of each kmer: the top range_bits bits of word 0 (raw
+    int32 bits, taken as u32: >> on int32 would carry the sign), as
+    _payload_mask_core does (kmer_engine.py:916-928).  Ranges ascend in
+    the dictionary's order, so their dictionaries concatenate."""
+    return (w0.to(torch.int64) & bk.FULL) >> (32 - range_bits)
 
-    hist is the small_K.freqs histogram: hist[c] = distinct kmers with
-    saturated count c, binned at min(100, count); the dictionary keeps
-    count >= min_freq (BuildReadQGraph.cc:1095-1115).
-    """
-    dev = resolve_device(device)
-    n, L = bases.shape
-    W = bk.nwords(k)
-    if L < k or n == 0:
-        return empty_dict(k, dev), np.zeros(101, dtype=np.int64)
-    backend = sort_backend()
-    P = L - k + 1
-    n_rows = n * P
-    stream = Stream(n_rows, W, k, backend, dev)
+
+def _device_chunks(bases, lengths, quals, k: int, min_qual: int,
+                   chunk_reads: int, dev):
+    """Yield (packed rows, usable lengths) of each chunk of reads on
+    `dev`: chunk i+1's host pack + upload runs on a worker thread while
+    the caller's kernels run on chunk i."""
+    n = bases.shape[0]
 
     def host_chunk(start):
         stop = min(start + chunk_reads, n)
@@ -366,18 +382,47 @@ def count_kmers_device(bases, lengths, quals, k: int, min_qual: int = 7,
         )
 
     starts = list(range(0, n, chunk_reads))
-    # double buffer: chunk i+1's host pack + upload runs on a worker
-    # thread while chunk i's kernels run
-    with timed(f"{span}.kmerize", dev), ThreadPoolExecutor(max_workers=1) as pool:
+    with ThreadPoolExecutor(max_workers=1) as pool:
         fut = pool.submit(host_chunk, starts[0])
-        for ci, start in enumerate(starts):
-            pr_d, glen_d = fut.result()
+        for ci in range(len(starts)):
+            chunk = fut.result()
             if ci + 1 < len(starts):
                 fut = pool.submit(host_chunk, starts[ci + 1])
+            yield chunk
+
+
+def _count_chunks(chunks, capacity: int, k: int, L: int, min_freq: int, dev,
+                  span: str, range_bits: int = 0, range_index: int = 0):
+    """K1 over the packed chunks into a stream of `capacity` rows (the
+    range's rows with range_bits), then the sort and K2: (KmerDict, hist)."""
+    W = bk.nwords(k)
+    stream = Stream(capacity, W, k, sort_backend(), dev, range_bits, range_index)
+    with timed(f"{span}.kmerize", dev):
+        for pr_d, glen_d in chunks:
             x = kmerize(pr_d, glen_d, k, L)
             stream.put(x[:W], x[W])
             del x
     return count_epilogue(stream, k, min_freq, span)
+
+
+def count_kmers_device(bases, lengths, quals, k: int, min_qual: int = 7,
+                       min_freq: int = 4, chunk_reads: int = 65536,
+                       device="cuda", span: str = "step2.count",
+                       range_bits: int = 0, range_index: int = 0):
+    """Count canonical kmers on `device`; returns (KmerDict, hist).
+
+    hist is the small_K.freqs histogram: hist[c] = distinct kmers with
+    saturated count c, binned at min(100, count); the dictionary keeps
+    count >= min_freq (BuildReadQGraph.cc:1095-1115).  range_bits > 0
+    counts only the kmers of hash range range_index (range_of).
+    """
+    dev = resolve_device(device)
+    n, L = bases.shape
+    if L < k or n == 0:
+        return empty_dict(k, dev), np.zeros(101, dtype=np.int64)
+    chunks = _device_chunks(bases, lengths, quals, k, min_qual, chunk_reads, dev)
+    return _count_chunks(chunks, n * (L - k + 1), k, L, min_freq, dev, span,
+                         range_bits, range_index)
 
 
 def compact_tiles(out: torch.Tensor, tile_counts: torch.Tensor, tile: int):
@@ -408,30 +453,124 @@ def dict_from_collapsed(collapsed, W: int, k: int, min_freq: int):
     return KmerDict(words, cnt, ctx, k), hist
 
 
+MAX_RANGE_BITS = 8  # at most 256 hash ranges, as the JAX package's rule
+
+
+def count_row_bytes(W: int) -> int:
+    """Device bytes a stream row costs step 2's count at its peak: the
+    stream and about three copies of it (the sort's keys, its output, the
+    gathered planes).  Measured: 77 B a window at W = 4, the unbatched
+    count's peak over its windows at E. coli scale and 16 Mbp (NVIDIA H100
+    80GB HBM3, lax sort; radix within 2%, pallas below)."""
+    return 16 * (W + 1)
+
+
+def range_sizes(chunks, k: int, L: int) -> list[int]:
+    """Valid kmer rows of each of the 2^MAX_RANGE_BITS finest hash
+    ranges: one K1 pass over the packed chunks."""
+    W = bk.nwords(k)
+    sizes = 0
+    for pr_d, glen_d in chunks:
+        x = kmerize(pr_d, glen_d, k, L)
+        valid = ~(x[:W] == -1).all(dim=0)
+        sizes = sizes + torch.bincount(range_of(x[0][valid], MAX_RANGE_BITS),
+                                       minlength=1 << MAX_RANGE_BITS)
+        del x
+    return sizes.tolist()
+
+
+def ranges_at(sizes: list[int], range_bits: int) -> list[int]:
+    """Rows of each of the 2^range_bits ranges from the finest sizes."""
+    step = len(sizes) >> range_bits
+    return [sum(sizes[i : i + step]) for i in range(0, len(sizes), step)]
+
+
+def ceiling_range_bits(sizes: list[int], range_bits: int, room: float,
+                       row_bytes: int) -> int:
+    """The fewest range bits, at least range_bits, whose largest range
+    fits `room` device bytes at row_bytes a row; MAX_RANGE_BITS when none
+    does.  Canonical kmers crowd the low ranges (about 7/16 of the rows in
+    the first of 4), so equal shares of the working set do not bound it."""
+    while (range_bits < MAX_RANGE_BITS
+           and max(ranges_at(sizes, range_bits)) * row_bytes > room):
+        range_bits += 1
+    return range_bits
+
+
 def count_kmers_batched(bases, lengths, quals, k: int, min_qual: int = 7,
                         min_freq: int = 4, chunk_reads: int = 65536,
                         disk_batches: int = 0, tmp_dir: str | None = None,
                         max_mem_gb: int = 10000, device="cuda"):
-    """Step-2 counting entry (kmer_engine.py:1433).  Range or disk
-    batching (-d > 1, or a working set above max_mem_gb) is not ported
-    yet and raises."""
+    """Step-2 counting entry (kmer_engine.py:1433-1533): disk_batches > 1,
+    or a working set above max_mem_gb (the SetMaxMemory analogue,
+    System.cc:1027), splits the canonical kmer space into 2^b hash ranges
+    (range_of) counted in separate passes, each range optionally spilled
+    to tmp_dir as npz; the ranges are disjoint and ascending, so the dict
+    is their concatenation, bit for bit the unbatched one (the reference's
+    createDictOMPDiskBased, BuildReadQGraph.cc:1120-1250).
+
+    Every pass runs K1, the sort and K2 on `device`.  The reads are packed
+    and uploaded once (a few bytes a base); one K1 pass counts each
+    range's rows, and each range's stream holds only its rows, so the
+    sort's footprint shrinks with the range.  (The JAX package cannot drop
+    out-of-range rows before its device sort, kmer_engine.py:1489-1507,
+    and takes its native host spill instead, :1471-1487.)
+
+    The number of ranges starts from the JAX package's rule (equal shares
+    of its working-set estimate), then doubles until the largest range,
+    as the sizing pass counted it, fits max_mem_gb beside the packed
+    reads (count_row_bytes), up to 256 ranges.  --tmp_dir bounds no
+    device peak: the ranges' dictionaries are small next to a range's
+    stream, and the reload puts them all back on the device."""
     W = bk.nwords(k)
     n_rows = int(bases.shape[0]) * max(0, int(bases.shape[1]) - k + 1)
-    bytes_needed = n_rows * 4 * (W + 1) * 3
+    bytes_needed = n_rows * 4 * (W + 1) * 3  # stream + sort ping/pong
     budget = float(max_mem_gb) * (1 << 30)
     n_batches = max(1, int(disk_batches))
-    while n_batches < 256 and bytes_needed / n_batches > budget:
+    while n_batches < 1 << MAX_RANGE_BITS and bytes_needed / n_batches > budget:
         n_batches *= 2
-    if n_batches > 1:
-        raise NotImplementedError(
-            f"range/disk-batched counting ({n_batches} batches from -d "
-            f"{disk_batches} / -m {max_mem_gb}) is not ported yet; see "
-            "ROADMAP.md"
+    range_bits = max(0, int(n_batches - 1).bit_length())
+    row_bytes = count_row_bytes(W)
+    dev = resolve_device(device)
+    span = "step2.count"
+    n, L = bases.shape
+    if L < k or n == 0 or (range_bits == 0 and n_rows * row_bytes <= budget):
+        return count_kmers_device(
+            bases, lengths, quals, k, min_qual=min_qual, min_freq=min_freq,
+            chunk_reads=chunk_reads, device=dev,
         )
-    return count_kmers_device(
-        bases, lengths, quals, k, min_qual=min_qual, min_freq=min_freq,
-        chunk_reads=chunk_reads, device=device,
-    )
+    with timed(f"{span}.pack", dev):
+        chunks = list(_device_chunks(bases, lengths, quals, k, min_qual,
+                                     chunk_reads, dev))
+    with timed(f"{span}.range_sizes", dev):
+        fine = range_sizes(chunks, k, L)
+    room = budget - sum(pr.nbytes + gl.nbytes for pr, gl in chunks)
+    range_bits = ceiling_range_bits(fine, range_bits, room, row_bytes)
+    sizes = ranges_at(fine, range_bits)
+    hist = np.zeros(101, dtype=np.int64)
+    parts = []
+    for ri, size in enumerate(sizes):
+        d, h = _count_chunks(chunks, size, k, L, min_freq, dev, span, range_bits, ri)
+        hist += h
+        if tmp_dir:
+            os.makedirs(tmp_dir, exist_ok=True)
+            path = os.path.join(tmp_dir, f"kmer_range_{ri:04d}.npz")
+            np.savez(path, words=d.host("words"), counts=d.host("counts"),
+                     ctx=d.host("ctx"))
+            parts.append(path)
+        else:
+            parts.append((d.words, d.cnt, d.ctx))
+        del d
+    del chunks
+    if tmp_dir:
+        spilled, parts = parts, []
+        for path in spilled:
+            with np.load(path) as z:
+                parts.append(tuple(torch.from_numpy(z[key].astype(np.int64)).to(dev)
+                                   for key in ("words", "counts", "ctx")))
+            os.remove(path)
+    words, cnt, ctx = (torch.cat([p[i] for p in parts]) for i in range(3))
+    return KmerDict(words, cnt, ctx, k), hist
 
 
 # ---------------------------------------------------------------------------

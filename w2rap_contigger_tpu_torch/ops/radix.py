@@ -41,7 +41,9 @@ tensors to the plain version):
                      row (bitonic.tile_geometry with num_ops = cmp_keys);
   splitters          sorted records -> (n_bins - 1) splitter keys (torch);
   partition   (K4b)  sorted records -> per-(bin, tile) slots + overflow;
-                     every slot a sorted run: a tile's rows, then fill;
+                     every slot a sorted run: a tile's rows, then fill
+                     (one block a slot: two warp searches, 16-byte
+                     stores);
   region_sort (K4c)  every C-record chunk of a region, made of sorted runs
                      of `run` = min(cap, C) records (K4b's slots), merged
                      into one sorted run (merge path in shared memory,
@@ -321,9 +323,13 @@ def partition_plain(planes, s_hi, s_lo, s_idx, sp_hi, sp_lo, num_keys: int,
 
 def partition(planes, s_hi, s_lo, s_idx, sp_hi, sp_lo, num_keys: int,
               cmp_keys: int, T: int, n_bins: int, cap: int):
-    """K4b on CUDA tensors (partition_plain is the plain version)."""
+    """K4b on CUDA tensors (partition_plain is the plain version): one
+    block a (tile, bin), two warp searches for the bin's edges, the slot
+    stored as 16-byte vectors; cap must be a multiple of 4."""
     _launch_ready(planes, s_hi, s_lo, s_idx, sp_hi, sp_lo)
     n = planes.shape[1]
+    if cap % 4:
+        raise ValueError(f"K4b takes slots of a multiple of 4 records, got {cap}")
     region = (n // T) * cap
     r_hi, r_lo, r_idx = (torch.empty(n_bins * region, dtype=d, device=planes.device)
                          for d in (torch.int64, torch.int64, torch.int32))
@@ -337,6 +343,11 @@ def partition(planes, s_hi, s_lo, s_idx, sp_hi, sp_lo, num_keys: int,
     _build.check(err, "w2rap_radix_partition")
     tdev.count_launch("radix_partition")
     return r_hi, r_lo, r_idx, overflow
+
+
+def partition_attrs() -> dict:
+    """Registers, spills and static shared memory of K4b's kernel."""
+    return _build.kernel_attrs("w2rap_radix_partition_attrs")
 
 
 # ---------------------------------------------------------------------------

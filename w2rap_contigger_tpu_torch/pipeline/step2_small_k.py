@@ -2,8 +2,7 @@
 
 Counterpart of w2rap_contigger_tpu/pipeline/step2_small_k.py:18-118
 (buildReadQGraph, src/paths/long/BuildReadQGraph.cc:1253, called with
-minQual=7, minFreq=4, K=60) without `mesh` and without the fill/join
-repair passes, which are not ported yet.
+minQual=7, minFreq=4, K=60) without `mesh`, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -11,10 +10,16 @@ from __future__ import annotations
 from .. import SMALL_K
 from ..device import resolve_device, timed
 from ..graph import build as gb
+from ..graph import gapfill
 from ..ops import kmer_engine as ke
 from ..paths import pather
 from ..paths import extend
 
+# fillGaps / joinOverlaps: min_freq2 = max(2, int(MIN_FREQ2_FRACT * min_freq
+# + .5)) (BuildReadQGraph.cc:1286); fillGaps takes gaps of any size, the
+# driver's max_gap_size 0 (w2rap-contigger.cc:338)
+MIN_FREQ2_FRACT = 0.75
+FILL_MAX_GAP_SIZE = 0
 
 def build_read_q_graph(
     reads,
@@ -37,14 +42,15 @@ def build_read_q_graph(
     (count, adjacencies, unitig links, pathing lookups) runs on
     `device`; the chain assembly, HBV build, path decode and extension
     are host numpy.
+
+    disk_batches > 1, or a counting working set above max_mem_gb, counts
+    in hash ranges, each spilled to tmp_dir when given
+    (kmer_engine.count_kmers_batched).  do_fill_gaps / do_join_overlaps
+    run the graph repair passes of graph/gapfill.py.
     """
     if mesh is not None:
         raise NotImplementedError(
             "multi-device step 2 (mesh) is not ported yet; see ROADMAP.md"
-        )
-    if do_fill_gaps or do_join_overlaps:
-        raise NotImplementedError(
-            "fill_join (graph/gapfill.py) is not ported yet; see ROADMAP.md"
         )
     dev = resolve_device(device)
 
@@ -64,6 +70,19 @@ def build_read_q_graph(
         gb.recompute_adjacencies(d)
     with timed("step2.unitigs", dev):
         edge_bases, edge_start = gb.build_unitigs(d)
+    min_freq2 = max(2, int(MIN_FREQ2_FRACT * min_freq + 0.5))
+    if do_fill_gaps:
+        with timed("step2.fill_gaps", dev):
+            d, edge_bases, edge_start = gapfill.fill_gaps(
+                reads, d, edge_bases, edge_start,
+                FILL_MAX_GAP_SIZE, min_freq2, chunk_reads,
+            )
+    if do_join_overlaps:
+        with timed("step2.join_overlaps", dev):
+            d, edge_bases, edge_start = gapfill.join_overlaps(
+                reads, d, edge_bases, edge_start,
+                k // 2, min_freq2, chunk_reads,
+            )
     with timed("step2.hbv", dev):
         hbv, fwd_xlat, rev_xlat = gb.build_hbv_from_edges(
             edge_bases, edge_start, k
