@@ -95,6 +95,17 @@ exits non-zero and prints no result line:
    step 3 of the pallas run, HBV and paths validated; the step-3 and
    step-4 split, the K2 rows, the unique K2 kmers and the peak device
    memory printed;
+5c. steps 1-3 sharded over a mesh of 4 logical shards of the card
+   ([cuda:0] x 4, `run_pipeline(mesh=)`): (a) on phase 4's 200 kb data
+   at K=200 under lax, radix and pallas, each against the card's
+   unsharded lax run (small_K.freqs, the small_K and large_K
+   checkpoints identical; K1 and K2 launched on every shard, K4 or K3
+   under radix or pallas); (b) at E. coli scale, K=260, lax, against
+   phase 6's lax run: the rows each shard owns (max / mean), the bytes
+   exchanged, K1 and K2 launches, step2.count with its .exchange,
+   SmallKGraph, RepathInMemory and the count's peak device memory
+   beside phase 5's printed; (c) with two cards or more, (b) again
+   through the CLI's --shard over the real cards, else real_cards=1;
 7. steps 1-7 at E. coli scale with gaps (4.6 Mbp, 550k PE250 pairs, 12
    copies of a 3 kb repeat, 8 coverage dips, seed 7) at K=260 on the
    card: graph and paths validated, no kernel launched in steps 6-7,
@@ -146,7 +157,9 @@ from w2rap_contigger_tpu_torch.ops import kmer_engine as tke  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import kmerize as kkm  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import radix  # noqa: E402
 from w2rap_contigger_tpu_torch import native  # noqa: E402
+from w2rap_contigger_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from w2rap_contigger_tpu_torch.pipeline import step3_repath, step5_gaps  # noqa: E402
+from w2rap_contigger_tpu_torch.pipeline.driver import run_pipeline  # noqa: E402
 from w2rap_contigger_tpu_torch.pipeline import step6_simplify, step7_scaffold  # noqa: E402
 from w2rap_contigger_tpu_torch.utils import sysinfo  # noqa: E402
 
@@ -1322,6 +1335,135 @@ def phase_step4(data: str) -> tuple[dict, int, list]:
     return runs, rows["k2"], step3_stream
 
 
+class MeshWatch:
+    """Wraps the sharded step-2 count for one run: its stats (the rows
+    each shard owns, the rows and bytes exchanged), its peak device
+    memory (the peak statistics reset as it starts) and its wall."""
+
+    def __enter__(self):
+        self._count = tke.count_kmers_sharded
+        self.stats = {}
+
+        def count(*a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            out = self._count(*a, stats=self.stats, **kw)
+            torch.cuda.synchronize()
+            self.seconds = time.time() - t0
+            self.peak = torch.cuda.max_memory_allocated()
+            return out
+
+        tke.count_kmers_sharded = count
+        return self
+
+    def __exit__(self, *exc):
+        tke.count_kmers_sharded = self._count
+
+
+def run_sharded(data: str, out: str, mesh, K: int, sort: str):
+    """Steps 1-3 through run_pipeline with an explicit mesh, --dump_all and
+    --dump_perf, counts reset just before; returns (launches, stats,
+    count seconds, count peak, wall)."""
+    os.environ["W2RAP_SORT"] = sort
+    sysinfo.timelog_reset()
+    tdev.reset_launches()
+    t0 = time.time()
+    try:
+        with MeshWatch() as watch, contextlib.redirect_stdout(io.StringIO()) as said:
+            hbv, paths, _ = run_pipeline(
+                out, read_spec=f"{data}/reads_R1.fastq,{data}/reads_R2.fastq",
+                large_k=K, to_step=3, dump_all=True, dump_perf=True, mesh=mesh,
+                device=DEV)
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("W2RAP_SORT", None)
+    if f"sharding over {mesh.size} devices" not in said.getvalue():
+        fail(f"the sharded run did not say it shards: {said.getvalue()!r}")
+    validate.test_involution(hbv)
+    validate.validate_paths(hbv, paths)
+    return dict(tdev.LAUNCHES), watch.stats, watch.seconds, watch.peak, time.time() - t0
+
+
+def check_shard_launches(label: str, launches: dict, stats: dict, D: int, k1_chunks: int,
+                         sort: str):
+    """K1 twice a chunk (the sizing pass and the exchange), K2 once an
+    owner in each of steps 2 and 3 (every owner holds rows), and the
+    sort back end's kernels."""
+    if min(stats["rows"]) <= 0:
+        fail(f"{label}: a shard owns no row {stats['rows']}")
+    if launches["kmerize"] != 2 * k1_chunks or launches["collapse"] != 2 * D:
+        fail(f"{label}: K1 {launches['kmerize']} (want {2 * k1_chunks}), "
+             f"K2 {launches['collapse']} (want {2 * D})")
+    for name in {"radix": K4, "pallas": K3}.get(sort, ()):
+        if launches[name] <= 0:
+            fail(f"{label}: kernel {name} was not launched")
+
+
+def shard_chunks(n_reads: int, D: int) -> int:
+    """K1 chunks of a sharded step-2 count: each shard's reads in chunks
+    of CHUNK_READS."""
+    per = -(-n_reads // D)
+    return sum(-(-max(0, min(per, n_reads - s * per)) // CHUNK_READS) for s in range(D))
+
+
+def phase_mesh(s200: str, data: str, count_peak: int):
+    """Steps 1-3 over 4 logical shards of the card: 200 kb at K=200 under
+    each sort against the unsharded lax run, then E. coli scale at K=260
+    (lax) against phase 6's lax run; with two cards or more, E. coli
+    again through --shard over the real cards."""
+    D = 4
+    mesh = tmesh.make_mesh([DEV] * D)
+    os.environ["W2RAP_TIMELOG"] = "1"
+    run_cli(s200, f"{s200}/k200", DEV, ["-K", "200", "--dump_all"], to_step=3)
+    n200 = 2 * SMALL["pairs"]
+    for sort in ("lax", "radix", "pallas"):
+        out = f"{s200}/mesh_{sort}"
+        launches, stats, count_s, _, wall = run_sharded(s200, out, mesh, 200, sort)
+        check_shard_launches(f"200 kb mesh ({sort})", launches, stats, D,
+                             shard_chunks(n200, D), sort)
+        diffs = same_outputs(f"{s200}/k200", out, SMALL_K + LARGE_K)
+        if diffs:
+            fail(f"200 kb steps 1-3: {D} shards ({sort}) and unsharded differ in {diffs}")
+        say("mesh_200kb", shards=D, sort=sort, K=200, wall_s=f"{wall:.2f}",
+            count_s=f"{count_s:.3f}", rows_max=max(stats["rows"]),
+            rows_mean=f"{sum(stats['rows']) / D:.1f}", exchanged_bytes=stats["exchanged_bytes"],
+            kmerize=launches["kmerize"], collapse=launches["collapse"],
+            launches=json.dumps({n: v for n, v in launches.items() if v}), identical=True)
+    out = f"{data}/mesh_k260"
+    launches, stats, count_s, peak, wall = run_sharded(data, out, mesh, 260, "lax")
+    check_shard_launches("E. coli mesh", launches, stats, D, shard_chunks(2 * ECOLI["pairs"], D),
+                         "lax")
+    diffs = same_outputs(f"{data}/k260_lax", out, SMALL_K + LARGE_K)
+    if diffs:
+        fail(f"E. coli K=260 steps 1-3: {D} shards and phase 6's lax run differ in {diffs}")
+    split = _split()
+    say("mesh_ecoli", shards=D, sort="lax", K=260, wall_s=f"{wall:.2f}",
+        rows_max=max(stats["rows"]), rows_mean=f"{sum(stats['rows']) / D:.1f}",
+        exchanged_rows=stats["exchanged_rows"], exchanged_bytes=stats["exchanged_bytes"],
+        kmerize=launches["kmerize"], collapse=launches["collapse"],
+        count_s=f"{count_s:.3f}", count_max_memory_allocated=peak,
+        unsharded_count_max_memory_allocated=count_peak,
+        small_k_graph_s=_perf_seconds(out, "SmallKGraph"),
+        repath_in_memory_s=_perf_seconds(out, "RepathInMemory"), identical=True)
+    say("mesh_ecoli_split", **{k: v for k, v in split.items()
+                               if k.startswith(("step2.count", "step3.count"))})
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        say("mesh_real_cards", real_cards=cards, skipped=True)
+        return
+    n = 1 << (cards.bit_length() - 1)
+    t0 = time.time()
+    tdev.reset_launches()
+    run_cli(data, f"{data}/shard_cards", DEV, ["-K", "260", "--dump_all", "--shard", str(n)],
+            to_step=3)
+    diffs = same_outputs(f"{data}/k260_lax", f"{data}/shard_cards", SMALL_K + LARGE_K)
+    if diffs:
+        fail(f"E. coli --shard {n} over real cards: outputs differ in {diffs}")
+    say("mesh_real_cards", real_cards=cards, shards=n, wall_s=f"{time.time() - t0:.2f}",
+        kmerize=tdev.LAUNCHES["kmerize"], collapse=tdev.LAUNCHES["collapse"], identical=True)
+
+
 def phase_ecoli_gaps(work: str) -> dict:
     """Steps 1-7 at E. coli scale with gaps, K=260, on the card, then
     hbv2gfa on pe.contig; returns the launches of the whole run."""
@@ -1448,6 +1590,9 @@ def main():
         t0 = time.time()
         runs, k2_rows, step3_stream = phase_step4(data)
         say("phase6", seconds=f"{time.time() - t0:.1f}")
+        t0 = time.time()
+        phase_mesh(s200, data, count_peak)
+        say("phase5c", seconds=f"{time.time() - t0:.1f}")
         t0 = time.time()
         phase_ecoli_gaps(work)
         say("phase7", seconds=f"{time.time() - t0:.1f}")

@@ -53,14 +53,12 @@ def test_step2_cli_matches_jax_pipeline(fastq, tmp_path):
 
 def test_cli_refuses_what_is_not_ported(fastq, tmp_path, monkeypatch):
     out = str(tmp_path)
-    # steps 6-7, --dev_run_test, -d/-m/--tmp_dir and --fill_join are
-    # ported; sharding is not
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["-r", fastq, "-o", out, "--to_step", "6", "--device", "cpu",
-                  "--shard", "2"])
-    # the bitonic sort (K3) is ported: W2RAP_SORT=pallas runs
+    # every option is ported: --shard 2 runs (one cpu device visible:
+    # unsharded, as the JAX package's auto_mesh), and the bitonic sort
+    # (K3) runs under W2RAP_SORT=pallas
     monkeypatch.setenv("W2RAP_SORT", "pallas")
-    hbv, paths, d = cli.main(["-r", fastq, "-o", out, "--to_step", "2", "--device", "cpu"])
+    hbv, paths, d = cli.main(["-r", fastq, "-o", out, "--to_step", "2", "--device", "cpu",
+                              "--shard", "2"])
     assert hbv.n_edges > 0 and d.size > 0 and os.path.exists(f"{out}/small_K.freqs")
     monkeypatch.setenv("W2RAP_SORT", "bogus")
     with pytest.raises(ValueError, match="lax, radix or pallas"):
@@ -97,9 +95,10 @@ def test_port_imports_no_jax():
         "assert not any(m.split('.')[0] in ('jax', 'w2rap_contigger_tpu')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "assert 'w2rap_contigger_tpu_torch.graph.gapfill' in names\n"
+        "assert 'w2rap_contigger_tpu_torch.parallel.mesh' in names\n"
         "print(len(names))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 65
+    assert int(res.stdout.strip()) >= 67

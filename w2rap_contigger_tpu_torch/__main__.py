@@ -11,7 +11,9 @@ stats and the GFA files.  --device cuda (the default) needs a card and
 never falls back to the CPU; --device cpu runs the plain PyTorch
 versions of the kernels and exists for the tests.  W2RAP_SORT=lax|
 radix|pallas picks the counting sort of steps 2 and 3, as in the JAX
-package.
+package.  --shard N (or W2RAP_SHARD=N) shards steps 2 and 3 over the
+visible cards, clamped to a power of two as the JAX package's auto_mesh
+does; with one card (or --device cpu) the run is unsharded.
 """
 
 from __future__ import annotations
@@ -56,7 +58,9 @@ def parse_args(argv=None):
     ap.add_argument("--fill_join", action="store_true",
                     help="step-2 fillGaps+joinOverlaps repair passes")
     ap.add_argument("--shard", type=int, default=-1,
-                    help="multi-device sharding: -1 auto, 0 off, N devices")
+                    help="shard steps 2-3 over the visible devices of --device: "
+                         "-1 all, 0 off, N at most N (a power of two; W2RAP_SHARD "
+                         "overrides; -d, -m and --tmp_dir are then ignored)")
     ap.add_argument("--dev_run_test", default="",
                     choices=["", "pathfinder", "pathfinder2"],
                     help="replay step 6 from --dump_pf checkpoints")
@@ -76,10 +80,6 @@ def main(argv=None):
         raise SystemExit(
             f"-K {args.large_k}: not an allowed K; pick from "
             + ",".join(str(x) for x in ALLOWED_K)
-        )
-    if args.shard > 1:
-        raise NotImplementedError(
-            "multi-device sharding is not ported yet; see ROADMAP.md"
         )
     if args.heuristics:
         import dataclasses
@@ -116,6 +116,7 @@ def main(argv=None):
         extend_paths=args.extend_paths,
         dump_pf=args.dump_pf,
         fill_join=args.fill_join,
+        shard_devices=args.shard,
         device=args.device,
     )
 

@@ -10,7 +10,9 @@ Counterpart of w2rap_contigger_tpu/graph/build.py on its device route
   (`links_core`, build.py:328-370);
 * pointer-doubling list ranking (`list_rank`, build.py:410-437).
 
-All three are torch on the dictionary's device.  The chain assembly
+All three are torch on the dictionary's device, or sharded over a
+parallel.mesh.Mesh (`mesh=`: slices of the rows or nodes a shard, the
+table replicated a device; JAX parallel/mesh.py:247-357).  The chain assembly
 after ranking (build.py:539-654, `_emit_cycles` :666) and
 `build_hbv_from_edges` / `_palindromic_edges` (:725-839) are host numpy,
 copied with their imports redirected to jax-free modules.  The table is
@@ -37,6 +39,7 @@ from ..ops import context as kctx
 from ..ops.kmer_engine import HostKmerDict
 from ..ops import np_bitkmer as hbk
 from ..ops.lookup import n_iters_for, search
+from ..parallel.mesh import list_rank_sharded
 from .hbv import HyperBasevector
 
 # nodes per links/adjacency dispatch: bounds the (nodes, W) neighbour
@@ -64,9 +67,12 @@ def adjacencies_core(table_t, words, ctx, k: int, n_iters: int):
     return new_ctx
 
 
-def recompute_adjacencies(d, host: bool = False):
+def recompute_adjacencies(d, host: bool = False, mesh=None):
     """Replace d.ctx by its pruned form, on the dictionary's device; a
-    host dict (or host=True) takes the host route (build.py:281-293)."""
+    host dict (or host=True) takes the host route (build.py:281-293).
+    With a mesh, each shard prunes a contiguous slice of the rows against
+    its device's replica of the table, and the slices gather on d's
+    device (JAX mesh.py:276-297)."""
     M = d.size
     if M == 0:
         return d
@@ -76,13 +82,19 @@ def recompute_adjacencies(d, host: bool = False):
         if lib is not None:
             return _prune_ctx_native(lib, d)
         return recompute_adjacencies_host(d)
-    table_t = d.table_t()
     n_iters = n_iters_for(M)
-    parts = [
-        adjacencies_core(table_t, d.words[s : s + NODE_CHUNK],
-                         d.ctx[s : s + NODE_CHUNK], d.k, n_iters)
-        for s in range(0, M, NODE_CHUNK)
-    ]
+    if mesh is None:
+        devices, slices, tables = [d.device], [(0, M)], [d.table_t()]
+    else:
+        devices, slices, tables = mesh.devices, mesh.slices(M), mesh.replicate(d.table_t())
+    parts = []
+    for dev, (lo, hi), table_t in zip(devices, slices, tables):
+        words, ctx = d.words[lo:hi].to(dev), d.ctx[lo:hi].to(dev)
+        parts += [
+            adjacencies_core(table_t, words[s : s + NODE_CHUNK], ctx[s : s + NODE_CHUNK],
+                             d.k, n_iters).to(d.device)
+            for s in range(0, hi - lo, NODE_CHUNK)
+        ]
     d.ctx = torch.cat(parts)
     return d
 
@@ -128,15 +140,26 @@ def links_core(words, ctx, k: int, n_iters: int, node_ids, table_t, pal):
     return torch.where(ok, v, -1)
 
 
-def build_links(words, ctx, k: int, n_iters: int):
-    """next (2M,) int64 over every oriented node, in NODE_CHUNK passes."""
+def build_links(words, ctx, k: int, n_iters: int, mesh=None):
+    """next (2M,) int64 over every oriented node, in NODE_CHUNK passes,
+    on words' device.  With a mesh, each shard links a contiguous slice of
+    the oriented node space against its device's replica of the table
+    (JAX mesh.py:247-273)."""
     M = words.shape[0]
-    table_t = words.T.contiguous()
-    pal = bk.is_palindrome(words, k)
+    if mesh is None:
+        devices, slices = [words.device], [(0, 2 * M)]
+    else:
+        devices, slices = mesh.devices, mesh.slices(2 * M)
+    replicas = {}
     parts = []
-    for s in range(0, 2 * M, NODE_CHUNK):
-        ids = torch.arange(s, min(s + NODE_CHUNK, 2 * M), device=words.device)
-        parts.append(links_core(words, ctx, k, n_iters, ids, table_t, pal))
+    for dev, (lo, hi) in zip(devices, slices):
+        if dev not in replicas:
+            w, c = words.to(dev), ctx.to(dev)
+            replicas[dev] = (w, c, w.T.contiguous(), bk.is_palindrome(w, k))
+        w, c, table_t, pal = replicas[dev]
+        for s in range(lo, hi, NODE_CHUNK):
+            ids = torch.arange(s, min(s + NODE_CHUNK, hi), device=dev)
+            parts.append(links_core(w, c, k, n_iters, ids, table_t, pal).to(words.device))
     return torch.cat(parts)
 
 
@@ -358,7 +381,7 @@ def _oriented_kmer_words(words, rcw, node_ids, M):
     return np.where(ori[:, None], rcw[kid], words[kid])
 
 
-def build_unitigs(d, span: str = "step2.unitigs", host: bool = False):
+def build_unitigs(d, span: str = "step2.unitigs", host: bool = False, mesh=None):
     """Canonical unitig edge set from the dictionary.
 
     Returns (edge_bases flat uint8, edge_start (E+1) int64) and fills the
@@ -366,7 +389,8 @@ def build_unitigs(d, span: str = "step2.unitigs", host: bool = False):
     for a device dict, d.kdef (their device copies, for pathing).  The
     device part (links, list ranking, download) is timed as
     `<span>.device`.  A host dict (or host=True) builds its links and
-    ranks on the host (build.py:452-476).
+    ranks on the host (build.py:452-476).  A mesh shards the links and
+    the list ranking (build.py:488-511); the chain assembly is the same.
     """
     M = d.size
     k = d.k
@@ -394,8 +418,11 @@ def build_unitigs(d, span: str = "step2.unitigs", host: bool = False):
     else:
         dev = d.device
         with timed(f"{span}.device", dev):
-            nxt_d = build_links(d.words, d.ctx, k, n_iters_for(M))
-            head_d, rank_d, cyc_d = list_rank(nxt_d, rank_iters_for(M))
+            nxt_d = build_links(d.words, d.ctx, k, n_iters_for(M), mesh)
+            if mesh is None:
+                head_d, rank_d, cyc_d = list_rank(nxt_d, rank_iters_for(M))
+            else:
+                head_d, rank_d, cyc_d = list_rank_sharded(mesh, nxt_d, rank_iters_for(M))
             nxt = nxt_d.cpu().numpy().astype(np.int32)
             head = head_d.cpu().numpy().astype(np.int32)
             rank = rank_d.cpu().numpy().astype(np.int32)

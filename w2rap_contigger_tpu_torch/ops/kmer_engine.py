@@ -30,6 +30,13 @@ stream of only that range's rows, the sort and K2, each on the device.
 The ranges' dictionaries, spilled to --tmp_dir or kept, concatenate in
 range order into the unbatched dictionary.
 
+Sharded counting (`count_kmers_sharded`, `count_kmers_flat(mesh=)`,
+--shard): each shard of a parallel.mesh.Mesh kmerizes its reads or
+position chunks, every valid row is copied to the stream of the shard
+that owns its hash (parallel.mesh.bucket_of), each owner sorts and
+collapses its rows on its device, and one multiword sort orders the
+owners' disjoint dictionaries on the first shard's device.
+
 Step 5's blob-local graphs count on the host instead (`count_kmers_flat
 (..., host=True)`, :663-713 and :836-885): the C++ leaf
 `native/count_kernel.cc` kmerizes, sorts and collapses segment batches,
@@ -40,6 +47,7 @@ none on the host, so a leaf that cannot build raises.
 
 from __future__ import annotations
 
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -47,6 +55,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, timed
+from ..parallel.mesh import bucket_of, on, shard_chunk
 from . import bitkmer as bk
 from . import bitonic
 from . import context as kctx
@@ -229,21 +238,29 @@ class Stream:
         self.range_bits = range_bits
         self.range_index = range_index
 
+    def layout(self, words: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+        """The stream's rows of a chunk's windows: words (W, m) and ctx
+        (m,) as raw int32 bits -> (planes, m)."""
+        W = self.W
+        if self.ctx_in_pad:
+            return torch.cat([words[: W - 1], (words[W - 1] | ctx)[None]])
+        return torch.cat([words, ((ctx << 8) | 1)[None]])
+
     def put(self, words: torch.Tensor, ctx: torch.Tensor) -> None:
         """Append the valid kmers of a chunk: words (W, m) and ctx (m,) as
         raw int32 bits, all-ones words where the window is invalid.  With
         range_bits, only the kmers of range range_index stay."""
-        W = self.W
-        valid = ~(words == -1).all(dim=0)
+        valid = valid_windows(words)
         if self.range_bits:
             valid &= range_of(words[0], self.range_bits) == self.range_index
-        if self.ctx_in_pad:
-            rows = torch.cat([words[: W - 1], (words[W - 1] | ctx)[None]])
-        else:
-            rows = torch.cat([words, ((ctx << 8) | 1)[None]])
-        rows = rows[:, valid]
+        self.append(self.layout(words, ctx)[:, valid])
+
+    def append(self, rows: torch.Tensor) -> None:
+        """Append laid-out rows (`layout`), copied from any device."""
         m = rows.shape[1]
-        self.buf[:, self.n : self.n + m] = rows
+        if self.n + m > self.buf.shape[1]:
+            raise RuntimeError(f"stream of {self.buf.shape[1]} rows: {self.n} + {m} do not fit")
+        self.buf[:, self.n : self.n + m].copy_(rows, non_blocking=True)
         self.n += m
 
     def planes(self) -> tuple[torch.Tensor, str]:
@@ -263,6 +280,12 @@ class Stream:
             planes[self.W :, n:] = 0
             return planes, kind
         return spread_padding(buf[:, :n], self.W, radix.DEFAULT_TILE_ROWS * radix.LANES), kind
+
+
+def valid_windows(words: torch.Tensor) -> torch.Tensor:
+    """(m,) mask of the windows that hold a kmer: words (W, m) are all
+    ones where a window is invalid."""
+    return ~(words == -1).all(dim=0)
 
 
 def spread_padding(rows: torch.Tensor, W: int, T: int) -> torch.Tensor:
@@ -472,7 +495,7 @@ def range_sizes(chunks, k: int, L: int) -> list[int]:
     sizes = 0
     for pr_d, glen_d in chunks:
         x = kmerize(pr_d, glen_d, k, L)
-        valid = ~(x[:W] == -1).all(dim=0)
+        valid = valid_windows(x[:W])
         sizes = sizes + torch.bincount(range_of(x[0][valid], MAX_RANGE_BITS),
                                        minlength=1 << MAX_RANGE_BITS)
         del x
@@ -574,6 +597,119 @@ def count_kmers_batched(bases, lengths, quals, k: int, min_qual: int = 7,
 
 
 # ---------------------------------------------------------------------------
+# sharded counting (parallel/mesh.py count_kmers_sharded :76-219, and the
+# flat fan-out kmer_engine.py:750-775)
+# ---------------------------------------------------------------------------
+
+
+def _exchange(words: torch.Tensor, ctx: torch.Tensor, streams: list[Stream]) -> None:
+    """Send a chunk's valid rows to their owners' streams: bucket ids, a
+    stable split by owner, one copy a non-empty owner."""
+    D = len(streams)
+    valid = valid_windows(words)
+    rows = streams[0].layout(words, ctx)[:, valid]
+    owner, order = torch.sort(bucket_of(words[0][valid], D), stable=True)
+    rows = rows[:, order]
+    start = 0
+    for o, m in enumerate(torch.bincount(owner, minlength=D).tolist()):
+        if m:
+            streams[o].append(rows[:, start : start + m])
+        start += m
+
+
+def _gather_dicts(parts, dev, k: int):
+    """One dictionary on `dev` from the owners' (KmerDict, hist): the
+    dictionaries hold disjoint kmers, so one multiword sort of their rows
+    orders them; the histograms add up."""
+    words, cnt, ctx = (torch.cat([getattr(d, a).to(dev) for d, _ in parts])
+                       for a in ("words", "cnt", "ctx"))
+    keys = [bk.pair_key(words[:, i[0]], words[:, i[1]]) if len(i) == 2 else words[:, i[0]]
+            for i in _sort_keys(words.shape[1])]
+    perm = sort_stream(keys)
+    return KmerDict(words[perm], cnt[perm], ctx[perm], k), sum(h for _, h in parts)
+
+
+def _count_exchanged(producers, mesh, W: int, k: int, min_freq: int, span: str,
+                     stats: dict | None):
+    """The sharded count over `producers`, (shard, fn) pairs whose fn()
+    gives a chunk's (words (W, m), ctx (m,)) raw int32 on the shard's
+    device: a sizing pass counts the rows each owner will hold, then each
+    chunk is made again and its rows go to their owners' streams, each
+    allocated to its exact size (never D full-size streams); each owner
+    sorts and collapses its stream on its device (sort back end + K2 at
+    min_freq: a kmer lives in one stream, so filtering a stream at a time
+    is filtering globally); the dictionaries gather on mesh.devices[0]."""
+    D = mesh.size
+    dev0 = mesh.devices[0]
+    owned = torch.zeros((D, D), dtype=torch.int64)  # [source shard, owner]
+    with timed(f"{span}.kmerize", dev0):
+        for s, produce in producers:
+            with on(mesh.devices[s]):
+                words = produce()[0]
+                owned[s] += torch.bincount(bucket_of(words[0][valid_windows(words)], D),
+                                           minlength=D).cpu()
+            del words
+        backend = sort_backend()
+        rows = owned.sum(dim=0).tolist()
+        streams = [Stream(rows[o], W, k, backend, mesh.devices[o]) for o in range(D)]
+        for s, produce in producers:
+            with on(mesh.devices[s]):
+                words, ctx = produce()
+                with timed(f"{span}.exchange", mesh.devices[s]):
+                    _exchange(words, ctx, streams)
+            del words, ctx
+    if stats is not None:
+        moved = int(owned.sum() - owned.diagonal().sum())
+        stats.update(rows=rows, exchanged_rows=moved,
+                     exchanged_bytes=moved * 4 * streams[0].buf.shape[0])
+    parts = []
+    for o, st in enumerate(streams):
+        with on(mesh.devices[o]):
+            parts.append(count_epilogue(st, k, min_freq, span))
+    del streams
+    with timed(f"{span}.gather", dev0):
+        return _gather_dicts(parts, dev0, k)
+
+
+def count_kmers_sharded(bases, lengths, quals, k: int, mesh, min_qual: int = 7,
+                        min_freq: int = 4, chunk_reads: int = 65536,
+                        stats: dict | None = None):
+    """Step 2's count over a mesh (JAX mesh.count_kmers_sharded,
+    mesh.py:76-167): (KmerDict on mesh.devices[0], hist), bit for bit
+    count_kmers_device's.
+
+    The reads split into mesh.size contiguous shards; each shard packs
+    and uploads its reads once and runs K1 on its device; every valid row
+    goes to the stream of the shard that owns its `bucket_of` hash, and
+    each owner runs the sort back end and K2 on what it owns.  K1 runs
+    twice a chunk (the sizing pass, then the exchange).  `stats`, when
+    given, receives the rows each owner held and the rows and bytes that
+    left their source shard."""
+    dev0 = mesh.devices[0]
+    n, L = bases.shape
+    if L < k or n == 0:
+        return empty_dict(k, dev0), np.zeros(101, dtype=np.int64)
+    W = bk.nwords(k)
+    span = "step2.count"
+
+    def k1(pr_d, glen_d):
+        x = kmerize(pr_d, glen_d, k, L)
+        return x[:W], x[W]
+
+    producers = []
+    with timed(f"{span}.pack", dev0):
+        for s, (lo, hi) in enumerate(mesh.slices(n)):
+            if hi > lo:
+                producers += [
+                    (s, functools.partial(k1, pr_d, glen_d))
+                    for pr_d, glen_d in _device_chunks(
+                        bases[lo:hi], lengths[lo:hi], quals[lo:hi], k, min_qual,
+                        chunk_reads, mesh.devices[s])
+                ]
+    return _count_exchanged(producers, mesh, W, k, min_freq, span, stats)
+
+
+# ---------------------------------------------------------------------------
 # flat counting (step 3's place sequences, kmer_engine.py:635-833)
 # ---------------------------------------------------------------------------
 
@@ -599,13 +735,18 @@ def kmerize_flat(packed, valid, has_pred, has_succ, pred_code, succ_code, k: int
 
 def count_kmers_flat(flat_bases, seg_offsets, k: int, min_freq: int = 1,
                      chunk_pos: int | None = None, device="cuda",
-                     span: str = "step3.count", host: bool = False):
+                     span: str = "step3.count", host: bool = False, mesh=None):
     """Count canonical kmers over concatenated sequences (:663-833, its
     device pipeline branch :783-824); returns the KmerDict.
 
     flat_bases (T,) uint8 codes of all sequences back to back;
     seg_offsets (S+1,) int64 bounds.  No kmer spans two sequences; a
     kmer's context bases stop at its sequence's ends.
+
+    mesh deals the position chunks over its shards (chunk i on shard i
+    mod D, the chunk clamped so that every shard gets one) and counts
+    them as count_kmers_sharded does (JAX :750-775); the dictionary lands
+    on mesh.devices[0] and `device` is not used.
 
     host=True counts with the native C++ leaf and returns a HostKmerDict
     (step 5's blob-local graphs; `device` is not used)."""
@@ -622,7 +763,7 @@ def count_kmers_flat(flat_bases, seg_offsets, k: int, min_freq: int = 1,
                 "the port has no other host count"
             )
         return _count_kmers_flat_native(lib, flat_bases, seg_offsets, k, W, min_freq)
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     if chunk_pos is None:
         chunk_pos = (1 << 21) if k <= 64 else (1 << 19)
     flat_bases = np.asarray(flat_bases, dtype=np.uint8)
@@ -630,37 +771,46 @@ def count_kmers_flat(flat_bases, seg_offsets, k: int, min_freq: int = 1,
     T = len(flat_bases)
     if T < k:
         return empty_dict(k, dev)
-    backend = sort_backend()
     n_pos = T - k + 1
     # segment bounds of every position (host, :718-721)
     seg_of = np.searchsorted(seg_offsets, np.arange(n_pos), side="right") - 1
     seg_end = seg_offsets[seg_of + 1]
     seg_start = seg_offsets[seg_of]
     halo = 16 * ((k + 15) // 16)
-    stream = Stream(n_pos, W, k, backend, dev)
 
-    def upload(x, dtype=torch.int64):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dtype).to(dev)
+    def chunk(st, C, dev):
+        """(words (W, C), ctx (C,)) of positions st..st+C on dev."""
+        def upload(x, dtype=torch.int64):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(dtype).to(dev)
 
+        cb = np.zeros(C + halo, dtype=np.uint8)
+        avail = min(T - st, C + halo)
+        cb[:avail] = flat_bases[st : st + avail]
+        pos = np.arange(st, st + C)
+        end = seg_end[st : st + C]
+        valid = pos + k <= end
+        hp = valid & (pos > seg_start[st : st + C])
+        hs = valid & (pos + k < end)
+        pc = flat_bases[np.maximum(pos - 1, 0)]
+        sc = flat_bases[np.minimum(pos + k, T - 1)]
+        packed = bk.from_raw32(upload(pack_rows_host(cb[None]).view(np.int32), torch.int32))
+        return kmerize_flat(
+            packed, upload(valid, torch.bool), upload(hp, torch.bool),
+            upload(hs, torch.bool), upload(pc), upload(sc), k,
+        )
+
+    if mesh is not None:
+        chunk_pos = shard_chunk(chunk_pos, n_pos, mesh)
+        producers = [
+            (i % mesh.size, functools.partial(chunk, st, min(chunk_pos, n_pos - st),
+                                              mesh.devices[i % mesh.size]))
+            for i, st in enumerate(range(0, n_pos, chunk_pos))
+        ]
+        return _count_exchanged(producers, mesh, W, k, min_freq, span, None)[0]
+    stream = Stream(n_pos, W, k, sort_backend(), dev)
     with timed(f"{span}.kmerize", dev):
         for st in range(0, n_pos, chunk_pos):
-            C = min(chunk_pos, n_pos - st)
-            cb = np.zeros(C + halo, dtype=np.uint8)
-            avail = min(T - st, C + halo)
-            cb[:avail] = flat_bases[st : st + avail]
-            pos = np.arange(st, st + C)
-            end = seg_end[st : st + C]
-            valid = pos + k <= end
-            hp = valid & (pos > seg_start[st : st + C])
-            hs = valid & (pos + k < end)
-            pc = flat_bases[np.maximum(pos - 1, 0)]
-            sc = flat_bases[np.minimum(pos + k, T - 1)]
-            packed = bk.from_raw32(upload(pack_rows_host(cb[None]).view(np.int32), torch.int32))
-            words, ctx = kmerize_flat(
-                packed, upload(valid, torch.bool), upload(hp, torch.bool),
-                upload(hs, torch.bool), upload(pc), upload(sc), k,
-            )
-            stream.put(words, ctx)
+            stream.put(*chunk(st, min(chunk_pos, n_pos - st), dev))
     d, _hist = count_epilogue(stream, k, min_freq, span)
     return d
 

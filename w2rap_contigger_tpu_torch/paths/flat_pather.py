@@ -10,7 +10,8 @@ Repath.cc:140-196).
 `lookup_flat_core` is the torch form of `_lookup_flat_core` (:23-40): the
 port's batched binary search (`ops.lookup.search`) on the dictionary's
 device, chunk by chunk as the device route (:164-212) runs it.  The
-segment decode (:214-251) is host numpy, copied.  `mesh` is not ported.
+segment decode (:214-251) is host numpy, copied.  With a mesh the
+chunks are dealt over its shards (`mesh=`).
 
 A HostKmerDict (or host=True; step 5's blob-local graphs) takes the host
 route (:48-80, :139-160, copied): one pass of the C++ leaf
@@ -29,6 +30,7 @@ from ..ops import np_bitkmer as hbk
 from ..ops.kmer_engine import HostKmerDict
 from ..ops.kmerize import pack_rows_host
 from ..ops.lookup import n_iters_for, search
+from ..parallel.mesh import shard_chunk
 from .pather import _native_path_lib
 
 
@@ -115,7 +117,7 @@ def _path_flat_numpy_fill(flat_bases, d, hbv, fwd_xlat, rev_xlat, k, all_e, all_
 
 def path_flat_sequences(flat_bases, seg_offsets, d, hbv, fwd_xlat, rev_xlat,
                         chunk_pos: int | None = None, span: str = "step3.pathing",
-                        host: bool = False):
+                        host: bool = False, mesh=None):
     """Walk each segment through the graph.
 
     Returns (paths: list of np.int32 arrays, starts (S,) int32, stops (S,)
@@ -123,7 +125,10 @@ def path_flat_sequences(flat_bases, seg_offsets, d, hbv, fwd_xlat, rev_xlat,
     bases of the last edge after the segment's final kmer (Repath.cc
     starts/stops semantics, Repath.cc:196-200).  Segments shorter than k
     or with a kmer missing from the dictionary get empty paths.  A host
-    dict (or host=True) is looked up on the host.
+    dict (or host=True) is looked up on the host.  A mesh deals the
+    position chunks over its shards (chunk i on shard i mod D, the chunk
+    clamped so that every shard gets one; JAX flat_pather.py:128-135,
+    mesh.py:360-385), each against its device's replica of the tables.
     """
     k = d.k
     if chunk_pos is None:
@@ -146,27 +151,30 @@ def path_flat_sequences(flat_bases, seg_offsets, d, hbv, fwd_xlat, rev_xlat,
                                       k, all_e, all_o)
     elif n_pos > 0 and d.size > 0:
         dev = d.device
-        table_t = d.table_t()
         n_iters = n_iters_for(d.size)
-        kdef_edge, kdef_off, kdef_rc = d.kdef
 
         def upload(x):
             return torch.from_numpy(np.asarray(x, dtype=np.int64)).to(dev)
 
-        fx, rx = upload(fwd_xlat), upload(rev_xlat)
-        ekm_canon = upload((np.diff(hbv.edge_start) - k + 1)[fwd_xlat])
+        tables = (d.table_t(), *d.kdef, upload(fwd_xlat), upload(rev_xlat),
+                  upload((np.diff(hbv.edge_start) - k + 1)[fwd_xlat]))
+        if mesh is None:
+            devices, reps = [dev], [tables]
+        else:
+            chunk_pos = shard_chunk(chunk_pos, n_pos, mesh)
+            devices = mesh.devices
+            reps = list(zip(*(mesh.replicate(t) for t in tables)))
         halo = 16 * ((k + 15) // 16)
         with timed(f"{span}.lookup", dev):
-            for s in range(0, n_pos, chunk_pos):
+            for i, s in enumerate(range(0, n_pos, chunk_pos)):
+                shard = i % len(devices)
                 C = min(chunk_pos, n_pos - s)
                 cb = np.zeros(C + halo, dtype=np.uint8)
                 avail = min(T - s, C + halo)
                 cb[:avail] = flat_bases[s : s + avail]
-                packed = bk.from_raw32(
-                    torch.from_numpy(pack_rows_host(cb[None]).view(np.int32)).to(dev)
-                )
-                he, off = lookup_flat_core(packed, table_t, kdef_edge, kdef_off,
-                                           kdef_rc, fx, rx, ekm_canon, k, n_iters, C)
+                packed = bk.from_raw32(torch.from_numpy(
+                    pack_rows_host(cb[None]).view(np.int32)).to(devices[shard]))
+                he, off = lookup_flat_core(packed, *reps[shard], k, n_iters, C)
                 all_e[s : s + C] = he.cpu().numpy()
                 all_o[s : s + C] = off.cpu().numpy()
 

@@ -4,8 +4,9 @@ device, run-length decode on the host.
 Counterpart of w2rap_contigger_tpu/paths/pather.py on its device route:
 `lookup_core` and `lookup_compact` are the torch forms of `_lookup_core`
 and `_lookup_compact_impl` (pather.py:38-151; torch.topk stands in for
-lax.top_k), `path_reads` is pather.py:420-542 without the mesh and
-without the native C++ route, with the same dense fallback for a chunk
+lax.top_k), `path_reads` is pather.py:420-542 (reads sharded over a mesh
+as in parallel/mesh.py:388-413) without the native C++ route for device
+dictionaries, with the same dense fallback for a chunk
 in which a read has more than RUN_SLOTS runs (:515-529).  The numpy
 decode (`_decode_chunk`, `_decode_compact`, `_parts_to_paths`,
 `edge_tail_words`, :159-340) is copied with its imports redirected.
@@ -332,9 +333,12 @@ def _path_reads_native(lib, reads, d, hbv, fwd_xlat, rev_xlat, k,
 
 
 def path_reads(reads, d, hbv, fwd_xlat, rev_xlat,
-               chunk_reads: int = 262144) -> ReadPathVec:
+               chunk_reads: int = 262144, mesh=None) -> ReadPathVec:
     """Path every read through the HBV on the dictionary's device, or
-    with the native leaf for a host dict (pather.py:450-458).
+    with the native leaf for a host dict (pather.py:450-458).  A mesh
+    splits each chunk's reads into a contiguous slice a shard, looked up
+    on the shard's device against replicated tables (JAX
+    mesh.py:388-413); the host decode is the same.
 
     reads: core.reads.ReadSet; d: KmerDict or HostKmerDict after
     build_unitigs; hbv and xlat from graph.build.build_hbv_from_edges.
@@ -360,16 +364,29 @@ def path_reads(reads, d, hbv, fwd_xlat, rev_xlat,
                                   edge_tail_words(hbv))
     dev = d.device
     n_iters = n_iters_for(d.size)
-    table_t = d.table_t()
-    kdef_edge, kdef_off, kdef_rc = d.kdef
-    fwd_x = torch.from_numpy(np.asarray(fwd_xlat, dtype=np.int64)).to(dev)
-    rev_x = torch.from_numpy(np.asarray(rev_xlat, dtype=np.int64)).to(dev)
-    ekm_canon = torch.from_numpy(
-        (np.diff(hbv.edge_start) - k + 1)[fwd_xlat].astype(np.int64)
-    ).to(dev)
+    tables = (
+        d.table_t(), *d.kdef,
+        torch.from_numpy(np.asarray(fwd_xlat, dtype=np.int64)),
+        torch.from_numpy(np.asarray(rev_xlat, dtype=np.int64)),
+        torch.from_numpy((np.diff(hbv.edge_start) - k + 1)[fwd_xlat].astype(np.int64)),
+    )
+    devices = mesh.devices if mesh is not None else (dev,)
+    reps = (list(zip(*(mesh.replicate(t) for t in tables))) if mesh is not None
+            else [tuple(t.to(dev) for t in tables)])
     tail_words = edge_tail_words(hbv)
-    args = (table_t, kdef_edge, kdef_off, kdef_rc, fwd_x, rev_x, ekm_canon,
-            k, n_iters, L)
+
+    def sharded(fn, packed, cl):
+        """fn's outputs over the chunk's reads, a slice a shard, as int32
+        numpy arrays in read order."""
+        outs = []
+        for i, (lo, hi) in enumerate(mesh.slices(len(cl)) if mesh is not None
+                                     else [(0, len(cl))]):
+            if hi > lo:
+                dp = bk.from_raw32(torch.from_numpy(packed[lo:hi].view(np.int32))
+                                   .to(devices[i]))
+                dl = torch.from_numpy(cl[lo:hi].astype(np.int64)).to(devices[i])
+                outs.append([_np32(t) for t in fn(dp, dl, *reps[i], k, n_iters, L)])
+        return [np.concatenate(parts) for parts in zip(*outs)]
 
     all_edges = []
     all_offs = []
@@ -378,22 +395,15 @@ def path_reads(reads, d, hbv, fwd_xlat, rev_xlat,
         stop = min(start + chunk_reads, n)
         cl = np.ascontiguousarray(reads.lengths[start:stop], dtype=np.int32)
         packed = pack_rows_host(reads.bases[start:stop])
-        dp = bk.from_raw32(torch.from_numpy(packed.view(np.int32)).to(dev))
-        dl = torch.from_numpy(cl.astype(np.int64)).to(dev)
         with timed("step2.pathing.lookup", dev):
-            pos_s, e_s, off_s, ekm_s, nruns = lookup_compact(dp, dl, *args)
-            nruns = _np32(nruns)
+            pos_s, e_s, off_s, ekm_s, nruns = sharded(lookup_compact, packed, cl)
         if int(nruns.max(initial=0)) <= pos_s.shape[1]:
-            pe, offs, so = _decode_compact(
-                _np32(pos_s), _np32(e_s), _np32(off_s), _np32(ekm_s),
-                nruns, cl, k, tail_words,
-            )
+            pe, offs, so = _decode_compact(pos_s, e_s, off_s, ekm_s, nruns, cl, k,
+                                           tail_words)
         else:
             # a read overflowed the compact slots: dense fallback
-            he, off, ekm_at = lookup_core(dp, dl, *args)
-            pe, offs, so = _decode_chunk(
-                _np32(he), _np32(off), _np32(ekm_at), cl, k, tail_words
-            )
+            pe, offs, so = _decode_chunk(*sharded(lookup_core, packed, cl), cl, k,
+                                         tail_words)
         all_edges.append(pe[: offs[stop - start]])
         all_offs.append(np.diff(offs))
         all_start.append(so)

@@ -3,7 +3,7 @@ checkpoints.
 
 Counterpart of w2rap_contigger_tpu/pipeline/driver.py:52-243.  Step 1
 is host `extract_reads`; steps 2 and 3 run on `device` through this
-package; step 4 (Clean200x) is host numpy, as in the JAX package; step 5
+package, or sharded over a mesh of devices; step 4 (Clean200x) is host numpy, as in the JAX package; step 5
 (AssembleGaps2 + AddNewStuff + PartnersToEnds) runs its blobs on the
 host with pre-correction and AddNewStuff's graph on `device`; steps 6
 (Simplify + contig outputs) and 7 (MakeGaps + FinalFiles) are host
@@ -25,6 +25,7 @@ from ..core.reads import ReadSet
 from ..device import resolve_device, timed
 from ..graph import gfa, lines as lines_mod
 from ..graph.hbv import HyperBasevector
+from ..parallel import mesh as pmesh
 from ..paths.pathfinder import PathFinder
 from ..paths.read_paths import ReadPathVec
 from ..utils import sysinfo
@@ -77,13 +78,30 @@ def run_pipeline(
     extend_paths: bool = False,
     dump_pf: bool = False,
     fill_join: bool = False,
+    shard_devices: int = -1,
+    mesh=None,
     device="cuda",
 ):
     """Run steps from_step..to_step (1..7) on `device`; returns (hbv,
     paths, dict): the graph and paths of the last step that ran, and the
     last kmer dictionary counted by steps 2-3 (Nones where no step made
-    them)."""
+    them).
+
+    Steps 2 and 3 run sharded over `mesh` (a parallel.mesh.Mesh; logical
+    shards may repeat a device), else over parallel.mesh.auto_mesh
+    (shard_devices: -1 every visible device of `device`'s type, 0 off, N
+    at most N; W2RAP_SHARD overrides; one device leaves the run
+    unsharded), as the JAX package's run_pipeline does (:81-89).  Outputs are the same
+    either way.  Steps 4-7 take no mesh."""
     dev = resolve_device(device)
+    if mesh is None:
+        asked, visible = pmesh.shard_request(shard_devices), pmesh.visible_devices(dev)
+        mesh = pmesh.auto_mesh(shard_devices, dev)
+        if asked > visible:
+            print(f"--shard {asked}: {visible} {dev.type} device(s) visible")
+    if mesh is not None:
+        print(f"sharding over {mesh.size} devices")
+    dev23 = mesh.devices[0] if mesh is not None else dev
     os.makedirs(out_dir, exist_ok=True)
     perf = PerfLog(f"{out_dir}/{prefix}.perf" if dump_perf else None)
     p = f"{out_dir}/{prefix}"
@@ -121,7 +139,8 @@ def run_pipeline(
             max_mem_gb=max_mem_gb,
             do_fill_gaps=fill_join,
             do_join_overlaps=fill_join,
-            device=dev,
+            mesh=mesh,
+            device=dev23,
         )
         if dump_all or to_step == 2:
             hbv.save(f"{p}.small_K.hbv.npz")
@@ -133,7 +152,7 @@ def run_pipeline(
 
     if from_step <= 3 <= to_step:
         hbv, paths, d = step3_repath.repath(
-            hbv, paths, large_k, extend_paths=extend_paths, device=dev
+            hbv, paths, large_k, extend_paths=extend_paths, device=dev23, mesh=mesh
         )
         if dump_all or to_step == 3:
             hbv.save(f"{p}.large_K.hbv.npz")

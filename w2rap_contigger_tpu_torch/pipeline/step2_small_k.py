@@ -2,7 +2,7 @@
 
 Counterpart of w2rap_contigger_tpu/pipeline/step2_small_k.py:18-118
 (buildReadQGraph, src/paths/long/BuildReadQGraph.cc:1253, called with
-minQual=7, minFreq=4, K=60) without `mesh`, which is not ported yet.
+minQual=7, minFreq=4, K=60), with or without a mesh.
 """
 
 from __future__ import annotations
@@ -47,29 +47,37 @@ def build_read_q_graph(
     in hash ranges, each spilled to tmp_dir when given
     (kmer_engine.count_kmers_batched).  do_fill_gaps / do_join_overlaps
     run the graph repair passes of graph/gapfill.py.
+
+    mesh (a parallel.mesh.Mesh): the count, adjacencies, unitig links and
+    read pathing run sharded over its devices (JAX :55-115), bit for bit
+    the unsharded run; `device` is then its first device.  disk_batches,
+    max_mem_gb and tmp_dir are ignored, as the JAX mesh branch ignores
+    them; the fill/join passes run unsharded.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device step 2 (mesh) is not ported yet; see ROADMAP.md"
-        )
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
 
     with timed("step2.count", dev):
-        d, hist = ke.count_kmers_batched(
-            reads.bases, reads.lengths, reads.quals, k,
-            min_qual=min_qual, min_freq=min_freq, chunk_reads=chunk_reads,
-            disk_batches=disk_batches, tmp_dir=tmp_dir,
-            max_mem_gb=max_mem_gb, device=dev,
-        )
+        if mesh is not None:
+            d, hist = ke.count_kmers_sharded(
+                reads.bases, reads.lengths, reads.quals, k, mesh,
+                min_qual=min_qual, min_freq=min_freq, chunk_reads=chunk_reads,
+            )
+        else:
+            d, hist = ke.count_kmers_batched(
+                reads.bases, reads.lengths, reads.quals, k,
+                min_qual=min_qual, min_freq=min_freq, chunk_reads=chunk_reads,
+                disk_batches=disk_batches, tmp_dir=tmp_dir,
+                max_mem_gb=max_mem_gb, device=dev,
+            )
     if workdir:
         with open(f"{workdir}/small_K.freqs", "w") as f:
             for i in range(1, 101):
                 f.write(f"{i}, {hist[i]}\n")
 
     with timed("step2.adjacencies", dev):
-        gb.recompute_adjacencies(d)
+        gb.recompute_adjacencies(d, mesh=mesh)
     with timed("step2.unitigs", dev):
-        edge_bases, edge_start = gb.build_unitigs(d)
+        edge_bases, edge_start = gb.build_unitigs(d, mesh=mesh)
     min_freq2 = max(2, int(MIN_FREQ2_FRACT * min_freq + 0.5))
     if do_fill_gaps:
         with timed("step2.fill_gaps", dev):
@@ -89,7 +97,7 @@ def build_read_q_graph(
         )
     with timed("step2.pathing", dev):
         paths = pather.path_reads(
-            reads, d, hbv, fwd_xlat, rev_xlat, chunk_reads=chunk_reads
+            reads, d, hbv, fwd_xlat, rev_xlat, chunk_reads=chunk_reads, mesh=mesh
         )
     with timed("step2.extend", dev):
         paths = extend.extend_paths(reads, paths, hbv)

@@ -1,7 +1,8 @@
-"""Step 3 — repath the k=60 graph to large K (default 200), on one device.
+"""Step 3 — repath the k=60 graph to large K (default 200), on one device
+or sharded over a mesh.
 
 Counterpart of w2rap_contigger_tpu/pipeline/step3_repath.py:26-245
-(RepathInMemory, src/paths/long/large/Repath.cc:23-251) without `mesh`:
+(RepathInMemory, src/paths/long/large/Repath.cc:23-251):
 
 1. read paths -> canonical unique "places" (total bases >= K2), host
    numpy (:44-157, with extend_paths :117-138);
@@ -14,7 +15,8 @@ Counterpart of w2rap_contigger_tpu/pipeline/step3_repath.py:26-245
    walks on the device (flat lookup), the rest host numpy (:191-245).
 
 Spans (W2RAP_TIMELOG=1): step3.places, step3.count.{kmerize,sort,
-collapse}, step3.adjacencies, step3.unitigs (.device), step3.hbv,
+collapse} (with a mesh also .exchange inside .kmerize, and .gather),
+step3.adjacencies, step3.unitigs (.device), step3.hbv,
 step3.pathing (.lookup), step3.translate.
 """
 
@@ -220,7 +222,7 @@ def _translate(paths, place_idx, place_rc, ipaths2, starts, stops,
     return ReadPathVec(offsets, flat_edges, start_off)
 
 
-def repath(hbv, paths, k2: int, extend_paths: bool = False, device="cuda"):
+def repath(hbv, paths, k2: int, extend_paths: bool = False, device="cuda", mesh=None):
     """Returns (hbv2, paths2, dict2); dict2 is None when no place exists.
 
     extend_paths mirrors the reference's EXTEND_PATHS branch
@@ -228,8 +230,12 @@ def repath(hbv, paths, k2: int, extend_paths: bool = False, device="cuda"):
     solo in-edge on the left and one solo out-edge on the right (the
     reference loop re-tests the same vertex, so it never walks further),
     and the extended copies join the place pool for the K2 graph.
+
+    mesh (a parallel.mesh.Mesh): the K2 count, adjacencies, unitig links
+    and flat pathing run sharded over its devices (JAX :185-192), bit for
+    bit the unsharded run; `device` is then its first device.
     """
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     with timed("step3.places", dev):
         place_idx, place_rc, place_list = _places(hbv, paths, k2, extend_paths)
         if not place_list:
@@ -254,18 +260,18 @@ def repath(hbv, paths, k2: int, extend_paths: bool = False, device="cuda"):
     # ---- K2 graph -----------------------------------------------------
     with timed("step3.count", dev):
         d2 = ke.count_kmers_flat(flat, seg_offsets, k2, min_freq=1, device=dev,
-                                 span="step3.count")
+                                 span="step3.count", mesh=mesh)
     with timed("step3.adjacencies", dev):
-        gb.recompute_adjacencies(d2)
+        gb.recompute_adjacencies(d2, mesh=mesh)
     with timed("step3.unitigs", dev):
-        eb, es = gb.build_unitigs(d2, span="step3.unitigs")
+        eb, es = gb.build_unitigs(d2, span="step3.unitigs", mesh=mesh)
     with timed("step3.hbv", dev):
         hbv2, fx2, rx2 = gb.build_hbv_from_edges(eb, es, k2)
 
     # ---- place walks in the new graph ---------------------------------
     with timed("step3.pathing", dev):
         ipaths2, starts, stops = flat_pather.path_flat_sequences(
-            flat, seg_offsets, d2, hbv2, fx2, rx2
+            flat, seg_offsets, d2, hbv2, fx2, rx2, mesh=mesh
         )
     with timed("step3.translate", dev):
         paths2 = _translate(paths, place_idx, place_rc, ipaths2, starts, stops,
