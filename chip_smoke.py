@@ -52,6 +52,15 @@ exits non-zero and prints no result line:
    leading int64 key as the library yardstick, K3a's and K3b's launch
    geometry, registers, spills and shared bytes, and the in-place sort's
    peak device memory;
+3d. the port's benchmark (python -m w2rap_contigger_tpu_torch.bench:
+   step 2's count chain, K1 -> sort -> K2 + compaction, on bench.py's
+   131,072 synthetic reads) in a subprocess under W2RAP_SORT=lax, radix,
+   then pallas, each JSON line printed: every back end's chain equal to
+   its count_kmers_device run, the three dictionaries equal, K1
+   launched twice and K2 once a chain, the sort's kernels launched, no
+   radix recount; then ops.align.banded_costs_batch on the card against
+   the same call on the CPU (B = 256, Ls = Lt = 250, bandwidth 16):
+   equal;
 4. step 2 through the port's CLI entry on a 200 kb genome / 24k PE250
    pairs, --device cuda against --device cpu: small_K.freqs, HBV and
    paths must be identical;
@@ -94,7 +103,11 @@ exits non-zero and prints no result line:
    the radix run with no exact recount, every K3 kernel in step 2 and in
    step 3 of the pallas run, HBV and paths validated; the step-3 and
    step-4 split, the K2 rows, the unique K2 kmers and the peak device
-   memory printed;
+   memory printed; the input reads and the lax run's small_K.freqs and
+   frag_reads_orig, small_K, large_K and large_K.clean arrays must
+   have the sha256 of the JAX package's run on the same data
+   (EXPECTED, written by scripts/port_parity.sh ecoli through
+   scripts/output_hashes.py);
 5c. steps 1-3 sharded over a mesh of 4 logical shards of the card
    ([cuda:0] x 4, `run_pipeline(mesh=)`): (a) on phase 4's 200 kb data
    at K=200 under lax, radix and pallas, each against the card's
@@ -114,8 +127,11 @@ exits non-zero and prints no result line:
    .pullaparter, .improve, .ext_final, .tail, .outputs, .classify;
    step7.make_gaps, .final_files), the blobs and pieces, the contig
    count, N50 and gaps added, the peak device memory and the kernel
-   launches of step 5 and of steps 6-7 printed; then the port's hbv2gfa
-   on pe.contig, its stats printed.
+   launches of step 5 and of steps 6-7 printed; the input reads,
+   small_K.freqs, the frag_reads_orig, pe.contig and pe_assembly
+   arrays and every step 6-7 file must have the sha256 of the JAX
+   package's run (EXPECTED, from scripts/port_parity.sh ecoli_gaps);
+   then the port's hbv2gfa on pe.contig, its stats printed.
 
 Then the total seconds, one JSON line of the kernels, and last the
 device JSON line.
@@ -162,6 +178,10 @@ from w2rap_contigger_tpu_torch.pipeline import step3_repath, step5_gaps  # noqa:
 from w2rap_contigger_tpu_torch.pipeline.driver import run_pipeline  # noqa: E402
 from w2rap_contigger_tpu_torch.pipeline import step6_simplify, step7_scaffold  # noqa: E402
 from w2rap_contigger_tpu_torch.utils import sysinfo  # noqa: E402
+from w2rap_contigger_tpu_torch.ops import align  # noqa: E402
+
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+from output_hashes import output_hashes, reads_hashes  # noqa: E402
 
 DEV = "cuda"
 SEED = 42
@@ -852,6 +872,348 @@ def check_bitonic(label: str, planes: torch.Tensor, num_keys: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the port's benchmark under each sort; banded_costs_batch
+# ---------------------------------------------------------------------------
+
+BENCH_SORT_KERNELS = {"lax": (), "radix": K4, "pallas": K3}
+BENCH_CHUNKS = 2  # bench.py's 131,072 reads in chunks of CHUNK_READS
+
+
+def phase_bench():
+    """python -m w2rap_contigger_tpu_torch.bench once per sort back end,
+    each in its own process."""
+    lines = {}
+    for sort in BENCH_SORT_KERNELS:
+        t0 = time.time()
+        res = subprocess.run([sys.executable, "-m", "w2rap_contigger_tpu_torch.bench"],
+                             cwd=REPO, env={**os.environ, "W2RAP_SORT": sort},
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            fail(f"the bench under {sort} exited {res.returncode}: {res.stderr[-2000:]}")
+        out = res.stdout.strip().splitlines()
+        print(out[-1], flush=True)
+        line = lines[sort] = json.loads(out[-1])
+        detail = line["detail"]
+        launches = detail["launches_per_chain"]
+        if (detail["sort_backend"] != sort or not detail["chain_equals_count_kmers_device"]
+                or detail["radix_recounts"] != 0):
+            fail(f"the bench under {sort}: {detail}")
+        if launches.get("kmerize") != BENCH_CHUNKS or launches.get("collapse") != 1:
+            fail(f"the bench under {sort}: K1 and K2 launches a chain {launches}")
+        if any(launches.get(name, 0) <= 0 for name in BENCH_SORT_KERNELS[sort]):
+            fail(f"the bench under {sort}: a sort kernel was not launched {launches}")
+        say("bench", sort=sort, seconds=f"{time.time() - t0:.1f}", kmers_per_s=line["value"],
+            chain_s=detail["kernel_wall_s"], unique_kmers=detail["unique_kmers"],
+            recounts=detail["radix_recounts"], launches=json.dumps(launches))
+    digests = {sort: line["detail"]["dict_sha256"] for sort, line in lines.items()}
+    if len(set(digests.values())) != 1:
+        fail(f"the bench's dictionaries differ between sort back ends {digests}")
+    say("bench_identical", lax_vs_radix=True, lax_vs_pallas=True)
+
+
+def check_banded_costs():
+    """ops.align.banded_costs_batch on the card against the CPU, at the
+    batch of a friend-alignment stack: 256 pairs of 250 bases, ragged
+    lengths, bandwidth 16."""
+    rng = np.random.default_rng(SEED)
+    B, L, bw = 256, READ_LEN, 16
+    Ts = rng.integers(0, 4, (B, L)).astype(np.int8)
+    Ss = Ts.copy()
+    Ss[rng.random((B, L)) < 0.02] = 0
+    lens_s = rng.integers(L - 40, L + 1, B).astype(np.int32)
+    lens_t = rng.integers(L - 20, L + 1, B).astype(np.int32)
+    got, first_ms = once_ms(lambda: align.banded_costs_batch(Ss, Ts, lens_s, lens_t, 0, bw))
+    t0 = time.time()
+    want = align.banded_costs_batch(Ss, Ts, lens_s, lens_t, 0, bw, device="cpu")
+    cpu_s = time.time() - t0
+    if got.dtype != torch.int32 or not torch.equal(got.cpu(), want):
+        fail("banded_costs_batch: cuda and cpu differ")
+    ms = time_ms(lambda: align.banded_costs_batch(Ss, Ts, lens_s, lens_t, 0, bw))
+    say("banded_costs", B=B, Ls=L, Lt=L, bandwidth=bw, cuda_first_ms=f"{first_ms:.2f}",
+        cuda_ms=f"{ms:.2f}", cpu_s=f"{cpu_s:.3f}", reachable=int((want < int(align.BIG)).sum()),
+        identical=True)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's outputs at E. coli scale, by sha256
+# ---------------------------------------------------------------------------
+
+# scripts/port_parity.sh ecoli ecoli_gaps (the JAX package on the CPU,
+# --dump_all; scripts/output_hashes.py: an npz array over its dtype,
+# shape and bytes, any other file over its bytes)
+EXPECTED = {
+    "ecoli": {
+        "a.fin.frags.dist":
+            "bf8c79e5da89b994303944281f5fd89fe3397143e45ba7f9490b9c34a24a8da1",
+        "a.lines.fasta":
+            "806eb8da9dbaacc6dada0a9f9daa7130a325ddfa6747537b40557d880c98c5d5",
+        "a_contigs_lines.gfa":
+            "d65e133e688623d5491bdfcc9cc29db40efea47d917b12371cd0aebbc342b106",
+        "a_contigs_raw.gfa":
+            "0f7f77c6bec9df599273716c883ac771de7741ead2317820ed7246a64c9c3c23",
+        "frag_reads_orig.npz:bases":
+            "2d1bc6c083bf0ef7533f6b166f53fe5439eb3774b41838414f1065d28ba0bd9b",
+        "frag_reads_orig.npz:lengths":
+            "b700acd4820a8753cd51cf2b9722839242b00b1e0b25af27313f225a254e7c4d",
+        "frag_reads_orig.npz:quals":
+            "02b5f8900823f16ef7e8115929bc5e0c4e10c46aa68a48bcc281abbe5071ab4f",
+        "pe.contig.hbv.npz:edge_bases":
+            "21de61ee0c9400f391944dbe0238ca42fc583740a7b357fb97a0ce292939e8e3",
+        "pe.contig.hbv.npz:edge_start":
+            "1cdc365650f347a15a45f914d11afe4bafde03fd3cf634a1420df6a025f5c959",
+        "pe.contig.hbv.npz:inv":
+            "d4ce76f01cf8d32e63a6ebdc73e8bdd51c6f4cc9999e7f06705c56375b525675",
+        "pe.contig.hbv.npz:k":
+            "4d1c5f604c1c488ceeb102832873f295bba6f540a3eb926eee66f6ad3e5e289d",
+        "pe.contig.hbv.npz:n_vertices":
+            "cf05341c2ac4e559ed81238b4b6ca470f1e9e8d7be60d624e85ecd64ff3ab300",
+        "pe.contig.hbv.npz:to_left":
+            "f2e9df7c7fa5a71099ed1287e6638c86962f1427608c4dc934cc6d78ac0a5c75",
+        "pe.contig.hbv.npz:to_right":
+            "5278030b3b97f57aa119c137684a93403d7357773a6c329232a03ed023f87d51",
+        "pe.contig.paths.npz:edges":
+            "abe1b3b8d1592e1fa977c949b6cbfb18fc742ee221ae6ab1361ac2b7eef807a5",
+        "pe.contig.paths.npz:offsets":
+            "409db5678f47173d3be6dedd49b75de981a08dfac661919f103617eccc36b281",
+        "pe.contig.paths.npz:start":
+            "5c5e0e7fda2026838e6cba5b888dda31f4cf3a434337cb3385df93b35089f582",
+        "pe.large_K.clean.hbv.npz:edge_bases":
+            "21de61ee0c9400f391944dbe0238ca42fc583740a7b357fb97a0ce292939e8e3",
+        "pe.large_K.clean.hbv.npz:edge_start":
+            "1cdc365650f347a15a45f914d11afe4bafde03fd3cf634a1420df6a025f5c959",
+        "pe.large_K.clean.hbv.npz:inv":
+            "d4ce76f01cf8d32e63a6ebdc73e8bdd51c6f4cc9999e7f06705c56375b525675",
+        "pe.large_K.clean.hbv.npz:k":
+            "4d1c5f604c1c488ceeb102832873f295bba6f540a3eb926eee66f6ad3e5e289d",
+        "pe.large_K.clean.hbv.npz:n_vertices":
+            "cf05341c2ac4e559ed81238b4b6ca470f1e9e8d7be60d624e85ecd64ff3ab300",
+        "pe.large_K.clean.hbv.npz:to_left":
+            "f2e9df7c7fa5a71099ed1287e6638c86962f1427608c4dc934cc6d78ac0a5c75",
+        "pe.large_K.clean.hbv.npz:to_right":
+            "5278030b3b97f57aa119c137684a93403d7357773a6c329232a03ed023f87d51",
+        "pe.large_K.clean.paths.npz:edges":
+            "d160ce90e75c5ff6fe6c56394fc5ffd7ea04d6fa5d6b40d4c475d199d12c91dc",
+        "pe.large_K.clean.paths.npz:offsets":
+            "3e3efec063b8ebe268b62aec176c2bdc1e9023d6d5137886ad313bc74879cb53",
+        "pe.large_K.clean.paths.npz:start":
+            "d6842b86aee3b438730812e425695bcfd8fc43c144d03cb5b9ce4c2259857b08",
+        "pe.large_K.final.hbv.npz:edge_bases":
+            "21de61ee0c9400f391944dbe0238ca42fc583740a7b357fb97a0ce292939e8e3",
+        "pe.large_K.final.hbv.npz:edge_start":
+            "1cdc365650f347a15a45f914d11afe4bafde03fd3cf634a1420df6a025f5c959",
+        "pe.large_K.final.hbv.npz:inv":
+            "d4ce76f01cf8d32e63a6ebdc73e8bdd51c6f4cc9999e7f06705c56375b525675",
+        "pe.large_K.final.hbv.npz:k":
+            "4d1c5f604c1c488ceeb102832873f295bba6f540a3eb926eee66f6ad3e5e289d",
+        "pe.large_K.final.hbv.npz:n_vertices":
+            "cf05341c2ac4e559ed81238b4b6ca470f1e9e8d7be60d624e85ecd64ff3ab300",
+        "pe.large_K.final.hbv.npz:to_left":
+            "f2e9df7c7fa5a71099ed1287e6638c86962f1427608c4dc934cc6d78ac0a5c75",
+        "pe.large_K.final.hbv.npz:to_right":
+            "5278030b3b97f57aa119c137684a93403d7357773a6c329232a03ed023f87d51",
+        "pe.large_K.final.paths.npz:edges":
+            "d160ce90e75c5ff6fe6c56394fc5ffd7ea04d6fa5d6b40d4c475d199d12c91dc",
+        "pe.large_K.final.paths.npz:offsets":
+            "3e3efec063b8ebe268b62aec176c2bdc1e9023d6d5137886ad313bc74879cb53",
+        "pe.large_K.final.paths.npz:start":
+            "d6842b86aee3b438730812e425695bcfd8fc43c144d03cb5b9ce4c2259857b08",
+        "pe.large_K.hbv.npz:edge_bases":
+            "21de61ee0c9400f391944dbe0238ca42fc583740a7b357fb97a0ce292939e8e3",
+        "pe.large_K.hbv.npz:edge_start":
+            "1cdc365650f347a15a45f914d11afe4bafde03fd3cf634a1420df6a025f5c959",
+        "pe.large_K.hbv.npz:inv":
+            "d4ce76f01cf8d32e63a6ebdc73e8bdd51c6f4cc9999e7f06705c56375b525675",
+        "pe.large_K.hbv.npz:k":
+            "4d1c5f604c1c488ceeb102832873f295bba6f540a3eb926eee66f6ad3e5e289d",
+        "pe.large_K.hbv.npz:n_vertices":
+            "cf05341c2ac4e559ed81238b4b6ca470f1e9e8d7be60d624e85ecd64ff3ab300",
+        "pe.large_K.hbv.npz:to_left":
+            "f2e9df7c7fa5a71099ed1287e6638c86962f1427608c4dc934cc6d78ac0a5c75",
+        "pe.large_K.hbv.npz:to_right":
+            "5278030b3b97f57aa119c137684a93403d7357773a6c329232a03ed023f87d51",
+        "pe.large_K.paths.npz:edges":
+            "d160ce90e75c5ff6fe6c56394fc5ffd7ea04d6fa5d6b40d4c475d199d12c91dc",
+        "pe.large_K.paths.npz:offsets":
+            "3e3efec063b8ebe268b62aec176c2bdc1e9023d6d5137886ad313bc74879cb53",
+        "pe.large_K.paths.npz:start":
+            "d6842b86aee3b438730812e425695bcfd8fc43c144d03cb5b9ce4c2259857b08",
+        "pe.small_K.hbv.npz:edge_bases":
+            "fc090689c999f17423aac0363cb12bb8fd1ffc76182055383e7535a57360b223",
+        "pe.small_K.hbv.npz:edge_start":
+            "0883958a9bd02fba6b98731d025d61fa6877e2a7fb2fe8a896c93fcd0ec01a52",
+        "pe.small_K.hbv.npz:inv":
+            "c053937e972fea4be5b255e139068b5c5f2c981916278de97c7fe16aa464b71c",
+        "pe.small_K.hbv.npz:k":
+            "aeebadd34227b791aad43e9910129675389d04e8f82927b3656ce5a31ae3ab13",
+        "pe.small_K.hbv.npz:n_vertices":
+            "6ce5f48251e927890fee1eb231162fabfba8a5e0ddc809060aa1d5e95ce484e9",
+        "pe.small_K.hbv.npz:to_left":
+            "fa98468224b258c8587563038d295e32f6f3cc74d1e40f42d9149ecfae1b3ae5",
+        "pe.small_K.hbv.npz:to_right":
+            "678c3f7caf05a22edce9b3a42a06afbb9fc90ab4b59a25ee6a24c01083f94442",
+        "pe.small_K.paths.npz:edges":
+            "a9580d709fa5840b275d9c3285a58272e34dc3b9a55f1cd73d78fa48913dc464",
+        "pe.small_K.paths.npz:offsets":
+            "3e3efec063b8ebe268b62aec176c2bdc1e9023d6d5137886ad313bc74879cb53",
+        "pe.small_K.paths.npz:start":
+            "d6842b86aee3b438730812e425695bcfd8fc43c144d03cb5b9ce4c2259857b08",
+        "pe_assembly_lines.gfa":
+            "d65e133e688623d5491bdfcc9cc29db40efea47d917b12371cd0aebbc342b106",
+        "pe_assembly_raw.gfa":
+            "0f7f77c6bec9df599273716c883ac771de7741ead2317820ed7246a64c9c3c23",
+        "reads/reads_R1.fastq":
+            "9e4e34ebf41ee6354ca8dc995d47985acbf196311c045536e8ea00c9fd115087",
+        "reads/reads_R2.fastq":
+            "0ca7e061b37e4a7ecd8647317afdb588bb8af8f751c4d9e4a58653d9aeeb70f0",
+        "small_K.freqs":
+            "d7d31960de14060a465ee11a9807e0f162d455598773e127ef05c1a553736e36",
+        "stats":
+            "3872d1f588704760169b77d0f353bfab35c99e038dea35efc2b4edeee3223745",
+    },
+    "ecoli_gaps": {
+        "a.fin.frags.dist":
+            "bf8c79e5da89b994303944281f5fd89fe3397143e45ba7f9490b9c34a24a8da1",
+        "a.lines.fasta":
+            "3d301702d8d7d39d55702e1b11007d11f5914e57ebb09d8490be8f47d3209333",
+        "a_contigs_lines.gfa":
+            "9b89cbc883c1d8b4bffa349f2def3db4a07aa7ca5c1261f88ffa90c13ac8978c",
+        "a_contigs_raw.gfa":
+            "d9fd9b2d297eda37aa2d4ea456735c1af521d258b89f4eb49a75297b1d8a8057",
+        "frag_reads_orig.npz:bases":
+            "aaf4e773cb1b05c1b4b50c5fb2e3fd7757c52fc6439a94b0fe9e8b76e617b504",
+        "frag_reads_orig.npz:lengths":
+            "b700acd4820a8753cd51cf2b9722839242b00b1e0b25af27313f225a254e7c4d",
+        "frag_reads_orig.npz:quals":
+            "43b64786d0ee35111bfe18234832a1d25485ff7ab465e058a6f4ee6f57e0aff3",
+        "pe.contig.hbv.npz:edge_bases":
+            "d6e001b7abe8d5e7883a7b0f87c0c940389edecda411c8bd6aff31a7bd6e72ad",
+        "pe.contig.hbv.npz:edge_start":
+            "c16e587b3ae4daf87a0f045722d759b602ad76be24b7e31e08151b38d3418b49",
+        "pe.contig.hbv.npz:inv":
+            "a778911d80815711e60ee12986f59edf74b93eff535951876b7f13bb81949d7a",
+        "pe.contig.hbv.npz:k":
+            "4d1c5f604c1c488ceeb102832873f295bba6f540a3eb926eee66f6ad3e5e289d",
+        "pe.contig.hbv.npz:n_vertices":
+            "014dca5eecbc3c30d1827c824abfa2360ab2b1eb7a4e8a1f77280fb0ab24cb9e",
+        "pe.contig.hbv.npz:to_left":
+            "ccd1976864ca305fd9febd797973690cacdf8ffeace4bf0c743e85fe33119ba0",
+        "pe.contig.hbv.npz:to_right":
+            "5bf3e8170ff52535686bd54bd61012ad76287230b5c98fc313a8fe9e47451c38",
+        "pe.contig.paths.npz:edges":
+            "719775238027eaae9d1d77f67c682164752e215dc74566cc4e25b1ccf3b03846",
+        "pe.contig.paths.npz:offsets":
+            "47b71f6483546591e5343b65fe59f0e196b0e11e2dce23dd63300fc140f0892d",
+        "pe.contig.paths.npz:start":
+            "222363afc1fdf30354e117a2cede8001b4995a079c49d15c567da40b5b8226c8",
+        "pe.large_K.clean.hbv.npz:edge_bases":
+            "ad847a0cc62858c65e6e4d03a305552b4dd654ece4ac729f0366b85a198f174b",
+        "pe.large_K.clean.hbv.npz:edge_start":
+            "cb9c533b1114290969e80eff3705a444b3c5c2a56d3b0d83f7c15d0e9d86c026",
+        "pe.large_K.clean.hbv.npz:inv":
+            "1b3d76af39fa0bcd6777aea9f6443c5d9b96d662d56b4a042c7ef8fa63855566",
+        "pe.large_K.clean.hbv.npz:k":
+            "4d1c5f604c1c488ceeb102832873f295bba6f540a3eb926eee66f6ad3e5e289d",
+        "pe.large_K.clean.hbv.npz:n_vertices":
+            "405705fcc7188fdd7e86f769ff20b4bf4aa76fd7d0a8095e3461545d3acf301a",
+        "pe.large_K.clean.hbv.npz:to_left":
+            "1cdef5c06f091aec5cfafc6ef09fff1c4201f0e94cad6f8e814a49dc1db92ecb",
+        "pe.large_K.clean.hbv.npz:to_right":
+            "4b004a008151080f3a87df8842e6d047e2b750f3172acb741a7f244497cf69ab",
+        "pe.large_K.clean.paths.npz:edges":
+            "08492f5cb03e5ab49ea027ed679ca0ddfa13721df8547edef6edc45576fc948d",
+        "pe.large_K.clean.paths.npz:offsets":
+            "d148c02792906654a3106da41fb5e5aa9fedef4257e635f2b9b135ca4d186256",
+        "pe.large_K.clean.paths.npz:start":
+            "2b74a16b7d40afce7c5ba7f44e09ee4c89aec3d8b08237daca7f3cba4e7bc658",
+        "pe.large_K.final.hbv.npz:edge_bases":
+            "4815141edfee822df3b7d58db858b28f8d61d2cdb6fb6ec0337ef715ff23c14c",
+        "pe.large_K.final.hbv.npz:edge_start":
+            "e63451bcf9ee5f35d413a16a34743c6286afe738dd77d778fc958a49f9ee3140",
+        "pe.large_K.final.hbv.npz:inv":
+            "a26e7aecafd55d896f04a889e9c041683b81ee2fd8b390442ea0a91b2541a331",
+        "pe.large_K.final.hbv.npz:k":
+            "4d1c5f604c1c488ceeb102832873f295bba6f540a3eb926eee66f6ad3e5e289d",
+        "pe.large_K.final.hbv.npz:n_vertices":
+            "6dd6bf3795f039ea7105ea2199d961c2d5f3463e026aba5dd89515bea8ee45cd",
+        "pe.large_K.final.hbv.npz:to_left":
+            "6d3b1e20a9d7cfc0cc7f84d9643a2e9c8c843d6cee49aa6ce491b4d0083405c4",
+        "pe.large_K.final.hbv.npz:to_right":
+            "59e06faac0a5d849803f497404f08255c10d727ec6e66aea8a0c047c76317c59",
+        "pe.large_K.final.paths.npz:edges":
+            "388c444cf34ff7310f386954349d62df55e082994ef1a68e5d0c7e7ce9b75f9f",
+        "pe.large_K.final.paths.npz:offsets":
+            "61671c2c8d0431b5ecfaf643057306bc96f49fe96126d9f35be069245171334f",
+        "pe.large_K.final.paths.npz:start":
+            "b13e425ad6b6f32bb40c04c2a5e777a5154b9db3db7091477e96d4fb7e67d76b",
+        "pe.large_K.hbv.npz:edge_bases":
+            "561646a0278e4477145b9eb9aa1fb7cb3ed2b107de285683c157e4c68c84b6b1",
+        "pe.large_K.hbv.npz:edge_start":
+            "087dee984fe5c8c6533935f4be038a5946391c1da063109759096b04a0ea801d",
+        "pe.large_K.hbv.npz:inv":
+            "62db9ee1c80b34495e43c456901ce681ed20633002f9f954ca6912f75d52b2d2",
+        "pe.large_K.hbv.npz:k":
+            "4d1c5f604c1c488ceeb102832873f295bba6f540a3eb926eee66f6ad3e5e289d",
+        "pe.large_K.hbv.npz:n_vertices":
+            "aa7ddfd433a3cdb7472fd80d919fa997d652428434b52466020e21f81c2f794c",
+        "pe.large_K.hbv.npz:to_left":
+            "21c2e25157bb5016b54b1a9ae3dd94ad89f1acd992ed2480f326469c58f244ef",
+        "pe.large_K.hbv.npz:to_right":
+            "30695ddc396d6f218922adfc3834fb8bc6102ed828057105bf3eda7b429f97b2",
+        "pe.large_K.paths.npz:edges":
+            "48e91c996e03339c4733383306163742d7962364f32f7cbc2cad25050db87a1e",
+        "pe.large_K.paths.npz:offsets":
+            "3696fa2f8a3db9c0ae568d1f796c821eb54993080387abaa1b884dfcc2e4155d",
+        "pe.large_K.paths.npz:start":
+            "5fa3c53e30655dd5dd0a5543f5c50ada9b420d499f08b1173080e88018218b1e",
+        "pe.small_K.hbv.npz:edge_bases":
+            "e53793bcc0ebb0a480ace9eab69403dbdaf6793b69b90b7cd9e0e4b2b1450a46",
+        "pe.small_K.hbv.npz:edge_start":
+            "a1a65a6da3ff4f80174cf7bf8c5e5ce57a6918ce99af31c487811ae4daee993b",
+        "pe.small_K.hbv.npz:inv":
+            "9a8783d55ebcd672c05f4d7d131f5831e8bc1ce3e55ad5422ef1da6490efe260",
+        "pe.small_K.hbv.npz:k":
+            "aeebadd34227b791aad43e9910129675389d04e8f82927b3656ce5a31ae3ab13",
+        "pe.small_K.hbv.npz:n_vertices":
+            "a4a0a8863ceacf4dad864037e42665a81800f262556f1119446cc3665c87413a",
+        "pe.small_K.hbv.npz:to_left":
+            "44fe94712d2a5788cae73ba99de94ebc4861b8715fa5cbda47a1f28f208471a4",
+        "pe.small_K.hbv.npz:to_right":
+            "8e5c26c945aad4f79146a0703e293ae75dee4aaff60093d93c7d865194c8e5f8",
+        "pe.small_K.paths.npz:edges":
+            "e8a7b1551a786d776e33ad3892aa690dc4acce66da53540d9431ad67535538d0",
+        "pe.small_K.paths.npz:offsets":
+            "73bb03e0f8b6581072b0564ebf53d780711ab23b858916c0bf255dd2aac04148",
+        "pe.small_K.paths.npz:start":
+            "14ac4e20bf21174c6e1bfb0375a6d800fd6be0393e1900ad3020475c6d7ae371",
+        "pe_assembly_lines.gfa":
+            "9b89cbc883c1d8b4bffa349f2def3db4a07aa7ca5c1261f88ffa90c13ac8978c",
+        "pe_assembly_raw.gfa":
+            "d9fd9b2d297eda37aa2d4ea456735c1af521d258b89f4eb49a75297b1d8a8057",
+        "reads/reads_R1.fastq":
+            "a37314ac0874e401e2c9a27428f55bb761a5dbd136727a26ccbe7986fa0d1c4e",
+        "reads/reads_R2.fastq":
+            "bcb56c7d341ccd7fa4ff2891f68041c2aa1ba7e806359ec2a197a466c3042451",
+        "small_K.freqs":
+            "097da23b8e25ef74ce8786788bec9d35d1fa2718dea8676313e72adfea84e13d",
+        "stats":
+            "9a4050a624a87789274090aed6544224ebf4d388038e7395519f28b361cd4318",
+    },
+}
+
+
+def check_hashes(label: str, config: str, data: str, out: str, names) -> int:
+    """The reads of `data` and the files `names` of `out` against
+    EXPECTED[config] (every key of those files); returns the count."""
+    want = {key: h for key, h in EXPECTED[config].items()
+            if key.startswith("reads/") or key.split(":")[0] in names}
+    got = {**reads_hashes(data), **output_hashes(out, names)}
+    diffs = sorted(key for key in set(want) | set(got) if want.get(key) != got.get(key))
+    if diffs:
+        fail(f"{label}: outputs differ from the JAX package's in {diffs}")
+    return len(want)
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: the port's steps through its CLI entry
 # ---------------------------------------------------------------------------
 
@@ -1329,7 +1691,9 @@ def phase_step4(data: str) -> tuple[dict, int, list]:
                              SMALL_K + LARGE_K + CLEAN)
         if diffs:
             fail(f"E. coli K=260: lax and {sort} checkpoints differ in {diffs}")
-    say("ecoli_k260_identical", lax_vs_radix=True, lax_vs_pallas=True)
+    n = check_hashes("E. coli K=260 steps 1-4", "ecoli", data, f"{data}/k260_lax",
+                     ("small_K.freqs", "frag_reads_orig.npz") + SMALL_K + LARGE_K + CLEAN)
+    say("ecoli_k260_identical", lax_vs_radix=True, lax_vs_pallas=True, jax_hashes=n)
     if not step3_stream:
         fail("step 3 of the radix run did not reach the partition sort")
     return runs, rows["k2"], step3_stream
@@ -1493,6 +1857,9 @@ def phase_ecoli_gaps(work: str) -> dict:
     missing = [n for n in STEP67_FILES if not os.path.exists(f"{out}/{n}")]
     if missing:
         fail(f"E. coli with gaps: steps 6-7 did not write {missing}")
+    n_hashes = check_hashes("E. coli with gaps, steps 1-7", "ecoli_gaps", data, out,
+                            ("small_K.freqs", "frag_reads_orig.npz") + STEP67_FILES
+                            + ASSEMBLY)
     with open(f"{out}/pe.perf") as f:
         perf = " | ".join(x.strip() for x in f)
     say("ecoli_gaps_steps1_7", genome=ECOLI_GAPS["glen"], pairs=ECOLI_GAPS["pairs"], K=260,
@@ -1504,7 +1871,7 @@ def phase_ecoli_gaps(work: str) -> dict:
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         launches=json.dumps({n: v for n, v in launches.items() if v}),
         step5_launches=json.dumps({n: v for n, v in watch.launches.items() if v}),
-        step67_launches=sum(step67_launches.values()))
+        step67_launches=sum(step67_launches.values()), jax_hashes=n_hashes)
     split = _split()
     say("ecoli_gaps_split", **{k: v for k, v in split.items() if k.startswith("step5")})
     say("ecoli_gaps_split67", **{k: v for k, v in split.items()
@@ -1563,6 +1930,12 @@ def main():
     del planes
     torch.cuda.empty_cache()
     say("phase3c_a", seconds=f"{time.time() - t0:.1f}")
+
+    # 3d: the port's benchmark under each sort, banded_costs_batch
+    t0 = time.time()
+    phase_bench()
+    check_banded_costs()
+    say("phase3d", seconds=f"{time.time() - t0:.1f}")
 
     with tempfile.TemporaryDirectory(prefix="w2rap_smoke_") as tmp:
         work = args.work or tmp

@@ -4,6 +4,8 @@ by `state`: adjacencies, links, list ranking, unitigs, HBV, the compact
 lookup and path_reads (with a chunk that takes the dense fallback).
 Tolerance: exact equality."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -159,3 +161,51 @@ def test_path_reads_match(built, monkeypatch, slots):
     np.testing.assert_array_equal(got.edges, want.edges)
     np.testing.assert_array_equal(got.start, want.start)
     assert len(got.edges) > 0
+
+
+def _large_k_pieces(seed=5, n=3000, piece=1500, step=100):
+    """15 overlapping 1.5 kb pieces of one random 3 kb sequence (a blob's
+    corrected reads, as step 5 hands them to its local graph)."""
+    seq = np.random.default_rng(seed).integers(0, 4, n).astype(np.uint8)
+    pieces = [seq[s:s + piece] for s in range(0, n - piece + 1, step)]
+    seg = np.zeros(len(pieces) + 1, dtype=np.int64)
+    seg[1:] = np.cumsum([len(p) for p in pieces])
+    return np.concatenate(pieces), seg
+
+
+@pytest.mark.parametrize("k", [544, 640])
+def test_host_leaf_graph_matches_torch_at_large_k(k):
+    """Above k = 512 the host graph leaf (native/graph_kernel.cc) must
+    build the torch route's graph: one unitig over the 3 kb sequence.
+    The JAX package's leaf overruns its stack arrays there, so the
+    port's torch route is the oracle."""
+    from w2rap_contigger_tpu_torch.ops import kmer_engine as tke
+
+    assert tgb._native_graph_lib() is not None
+    flat, seg = _large_k_pieces()
+    hd = tke.count_kmers_flat(flat, seg, k, min_freq=2, host=True)
+    tgb.recompute_adjacencies(hd, host=True)
+    heb, hes = tgb.build_unitigs(hd, host=True)
+    d = tke.count_kmers_flat(flat, seg, k, min_freq=2, device="cpu")
+    tgb.recompute_adjacencies(d)
+    eb, es = tgb.build_unitigs(d)
+    assert hd.size == d.size > 0
+    np.testing.assert_array_equal(hd.words, d.words.numpy().astype(np.uint32))
+    np.testing.assert_array_equal(hd.ctx, d.ctx.numpy().astype(np.uint32))
+    np.testing.assert_array_equal(hes, es)
+    np.testing.assert_array_equal(heb, eb)
+    assert len(es) == 2  # one unitig
+
+
+def test_host_leaf_refuses_rows_above_its_size():
+    lib = tgb._native_graph_lib()
+    assert lib is not None
+    W = tgb.NATIVE_MAX_W + 1
+    words = np.zeros((4, W), np.uint32)
+    ctx = np.zeros(4, np.uint32)
+    with pytest.raises(ValueError, match="at most 40 words"):
+        tgb._build_links_native(lib, words, ctx, 16 * W)
+    d = SimpleNamespace(words=words, ctx=ctx, size=4, k=16 * W)
+    with pytest.raises(ValueError, match="at most 40 words"):
+        tgb._prune_ctx_native(lib, d)
+    assert not d.ctx.any()

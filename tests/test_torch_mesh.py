@@ -97,6 +97,44 @@ def test_sharded_count_matches_jax_mesh(count_case):
     assert stats["exchanged_bytes"] == 4 * 4 * stats["exchanged_rows"]  # W=4, ctx in pad
 
 
+def test_timed_synchronises_every_device(monkeypatch):
+    """timed(name, [d0, d1]) waits for both cards (each once, in order);
+    a CPU device waits for nothing."""
+    from w2rap_contigger_tpu_torch import device as tdev
+
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: synced.append(dev))
+    d0, d1 = torch.device("cuda:0"), torch.device("cuda:1")
+    with tdev.timed("mesh.span", [d0, d1, d0]):
+        assert synced == []
+    assert synced == [d0, d1]
+    synced.clear()
+    with tdev.timed("one.span", d1):
+        pass
+    with tdev.timed("cpu.span", ["cpu", "cpu"]):
+        pass
+    assert synced == [d1]
+
+
+def test_sharded_count_spans_wait_for_the_mesh(count_case, monkeypatch):
+    """The sharded count's .kmerize and .gather spans name every device
+    of the mesh; .exchange, .sort and .collapse name one shard's."""
+    bases, lengths, quals, _, _ = count_case
+    spans = {}
+    timed = tke.timed
+
+    def record(name, device):
+        spans.setdefault(name.rsplit(".", 1)[-1], []).append(device)
+        return timed(name, device)
+
+    monkeypatch.setattr(tke, "timed", record)
+    mesh = cpu_mesh(4)
+    tke.count_kmers_sharded(bases, lengths, quals["hq"], 60, mesh, min_freq=2, chunk_reads=8)
+    assert spans["kmerize"] == spans["gather"] == [mesh.devices]
+    for name in ("exchange", "sort", "collapse"):
+        assert spans[name] and all(isinstance(d, torch.device) for d in spans[name])
+
+
 def test_sharded_count_of_no_valid_window(count_case):
     """Every owner empty: each takes count_epilogue's empty branch on its
     own device, and the gathered dictionary is empty too."""

@@ -96,9 +96,34 @@ def test_port_imports_no_jax():
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "assert 'w2rap_contigger_tpu_torch.graph.gapfill' in names\n"
         "assert 'w2rap_contigger_tpu_torch.parallel.mesh' in names\n"
+        "assert 'w2rap_contigger_tpu_torch.bench' in names\n"
+        "assert 'w2rap_contigger_tpu_torch.ops.align' in names\n"
         "print(len(names))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 67
+    assert int(res.stdout.strip()) >= 78
+
+
+# the JAX package's Pallas files -> the port's modules of their kernels
+PALLAS_PORTS = {"ops/pallas_kmer.py": "ops/kmerize.py", "ops/pallas_collapse.py": "ops/collapse.py",
+                "ops/pallas_sort.py": "ops/bitonic.py", "ops/pallas_radix.py": "ops/radix.py"}
+
+
+def _py_files(package: str) -> set[str]:
+    root = os.path.join(REPO, package)
+    return {os.path.relpath(os.path.join(d, f), root).replace(os.sep, "/")
+            for d, _, files in os.walk(root) for f in files if f.endswith(".py")}
+
+
+def test_port_has_every_jax_module():
+    """Every module of the JAX package has a counterpart under the same
+    relative path in the port, but the four Pallas files, whose kernels
+    the port's ops/{kmerize,collapse,bitonic,radix}.py hold."""
+    jax_files, port_files = (_py_files(p) for p in ("w2rap_contigger_tpu",
+                                                     "w2rap_contigger_tpu_torch"))
+    assert set(PALLAS_PORTS) <= jax_files
+    missing = sorted(PALLAS_PORTS.get(f, f) for f in jax_files
+                     if PALLAS_PORTS.get(f, f) not in port_files)
+    assert missing == []

@@ -54,8 +54,11 @@ def synchronize(device) -> None:
 
 @contextmanager
 def timed(name: str, device):
-    """sysinfo.timelog section that waits for the device before it
-    closes, so a W2RAP_TIMELOG split holds device time, not enqueue."""
+    """sysinfo.timelog section that waits for the device (or for each
+    device of a sequence, such as a mesh's) before it closes, so a
+    W2RAP_TIMELOG split holds device time, not enqueue."""
+    devices = device if isinstance(device, (list, tuple)) else (device,)
     with sysinfo.timelog(name):
         yield
-        synchronize(device)
+        for dev in dict.fromkeys(torch.device(d) for d in devices):
+            synchronize(dev)

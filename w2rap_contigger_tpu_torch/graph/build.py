@@ -209,6 +209,22 @@ def _native_graph_lib():
     return native.load("w2rapgraph", ["graph_kernel.cc"], libs=["pthread"])
 
 
+# The largest row the graph leaf holds (native/graph_kernel.cc MAX_W):
+# 40 words, k = 640, the largest allowed -K.
+NATIVE_MAX_W = 40
+
+
+def _native_graph_call(fn, *args) -> None:
+    """Call a graph-leaf entry that takes W as its fifth argument; the
+    leaf returns -1, having written nothing, for a W it cannot hold."""
+    import ctypes
+
+    fn.restype = ctypes.c_int32
+    if fn(*args) != 0:
+        raise ValueError(f"the host graph leaf holds rows of at most {NATIVE_MAX_W} "
+                         f"words (k <= {16 * NATIVE_MAX_W}); got {args[4].value} words")
+
+
 def _graph_threads():
     import os
 
@@ -224,8 +240,8 @@ def _prune_ctx_native(lib, d):
     ctx = np.ascontiguousarray(d.ctx, dtype=np.uint32)
     out = np.empty(d.size, dtype=np.uint32)
     u32p = ctypes.POINTER(ctypes.c_uint32)
-    lib.w2rap_prune_ctx(
-        words.ctypes.data_as(u32p), ctx.ctypes.data_as(u32p),
+    _native_graph_call(
+        lib.w2rap_prune_ctx, words.ctypes.data_as(u32p), ctx.ctypes.data_as(u32p),
         ctypes.c_int64(d.size), ctypes.c_int32(d.k),
         ctypes.c_int32(words.shape[1]),
         ctypes.c_int32(_graph_threads()),
@@ -243,8 +259,8 @@ def _build_links_native(lib, words, ctx, k):
     m = words.shape[0]
     out = np.empty(2 * m, dtype=np.int32)
     u32p = ctypes.POINTER(ctypes.c_uint32)
-    lib.w2rap_build_links(
-        words.ctypes.data_as(u32p), ctx.ctypes.data_as(u32p),
+    _native_graph_call(
+        lib.w2rap_build_links, words.ctypes.data_as(u32p), ctx.ctypes.data_as(u32p),
         ctypes.c_int64(m), ctypes.c_int32(k),
         ctypes.c_int32(words.shape[1]),
         ctypes.c_int32(_graph_threads()),

@@ -22,6 +22,11 @@
 
 namespace {
 
+// The largest kmer this leaf holds: W = 40 words, k = 640 (the largest
+// allowed -K).  Every stack array below has this size, and each entry
+// refuses a larger W (returns -1) before it touches a row.
+constexpr int MAX_W = 40;
+
 static inline uint32_t revpair32(uint32_t x) {
     const uint32_t M2 = 0x33333333u, M4 = 0x0F0F0F0Fu, M8 = 0x00FF00FFu;
     x = ((x & M2) << 2) | ((x >> 2) & M2);
@@ -35,7 +40,7 @@ static inline uint32_t revpair32(uint32_t x) {
 // across the whole string, then re-align to the top (pad bits low).
 static inline void rc_words(const uint32_t* w, int W, int k,
                             uint32_t* out) {
-    uint32_t rev[32];
+    uint32_t rev[MAX_W];
     for (int j = 0; j < W; ++j) rev[j] = revpair32(~w[W - 1 - j]);
     int s = 2 * (16 * W - k);
     if (s == 0) {
@@ -142,7 +147,7 @@ struct Ctx {
 static void prune_block(const Ctx& c, int64_t r0, int64_t r1,
                         uint32_t* out_ctx) {
     const int W = c.W, k = c.k;
-    uint32_t nb[32], rc[32];
+    uint32_t nb[MAX_W], rc[MAX_W];
     const uint32_t* canon;
     for (int64_t i = r0; i < r1; ++i) {
         const uint32_t* w = c.words + i * W;
@@ -172,7 +177,7 @@ static void links_block(const Ctx& c, int64_t n0, int64_t n1,
                         int32_t* out_next) {
     const int W = c.W, k = c.k;
     const int64_t m = c.m;
-    uint32_t w_o[32], sw[32], rc[32];
+    uint32_t w_o[MAX_W], sw[MAX_W], rc[MAX_W];
     const uint32_t* canon;
     for (int64_t n = n0; n < n1; ++n) {
         int64_t kid = n % m;
@@ -218,26 +223,31 @@ static void run_threads(int64_t n, int nt, F f) {
 extern "C" {
 
 // Adjacency pruning: out_ctx[i] keeps only the context bits whose
-// neighbor kmer exists in the sorted table.
-void w2rap_prune_ctx(const uint32_t* words, const uint32_t* ctx,
-                     int64_t m, int32_t k, int32_t W, int32_t n_threads,
-                     uint32_t* out_ctx) {
+// neighbor kmer exists in the sorted table.  Returns 0, or -1 (nothing
+// written) when W is outside 1..MAX_W.
+int32_t w2rap_prune_ctx(const uint32_t* words, const uint32_t* ctx,
+                        int64_t m, int32_t k, int32_t W, int32_t n_threads,
+                        uint32_t* out_ctx) {
+    if (W < 1 || W > MAX_W) return -1;
     auto lut = build_lut(words, W, m);
     Ctx c{words, ctx, lut.data(), nullptr, k, W, m};
     run_threads(m, n_threads, [&](int64_t a, int64_t b) {
         prune_block(c, a, b, out_ctx);
     });
+    return 0;
 }
 
 // Unitig links: out_next[n] for oriented nodes n = kid + o*m (-1 when
-// no link leaves n).  ctx must already be pruned.
-void w2rap_build_links(const uint32_t* words, const uint32_t* ctx,
-                       int64_t m, int32_t k, int32_t W,
-                       int32_t n_threads, int32_t* out_next) {
+// no link leaves n).  ctx must already be pruned.  Returns 0, or -1
+// (nothing written) when W is outside 1..MAX_W.
+int32_t w2rap_build_links(const uint32_t* words, const uint32_t* ctx,
+                          int64_t m, int32_t k, int32_t W,
+                          int32_t n_threads, int32_t* out_next) {
+    if (W < 1 || W > MAX_W) return -1;
     auto lut = build_lut(words, W, m);
     std::vector<uint8_t> pal(m);
     run_threads(m, n_threads, [&](int64_t a, int64_t b) {
-        uint32_t rc[32];
+        uint32_t rc[MAX_W];
         for (int64_t i = a; i < b; ++i) {
             rc_words(words + i * W, W, k, rc);
             pal[i] = std::memcmp(rc, words + i * W, W * 4) == 0;
@@ -247,6 +257,7 @@ void w2rap_build_links(const uint32_t* words, const uint32_t* ctx,
     run_threads(2 * m, n_threads, [&](int64_t a, int64_t b) {
         links_block(c, a, b, out_next);
     });
+    return 0;
 }
 
 // List ranking over the oriented-node successor links: head = start of

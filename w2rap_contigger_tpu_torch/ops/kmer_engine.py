@@ -642,7 +642,7 @@ def _count_exchanged(producers, mesh, W: int, k: int, min_freq: int, span: str,
     D = mesh.size
     dev0 = mesh.devices[0]
     owned = torch.zeros((D, D), dtype=torch.int64)  # [source shard, owner]
-    with timed(f"{span}.kmerize", dev0):
+    with timed(f"{span}.kmerize", mesh.devices):
         for s, produce in producers:
             with on(mesh.devices[s]):
                 words = produce()[0]
@@ -667,7 +667,7 @@ def _count_exchanged(producers, mesh, W: int, k: int, min_freq: int, span: str,
         with on(mesh.devices[o]):
             parts.append(count_epilogue(st, k, min_freq, span))
     del streams
-    with timed(f"{span}.gather", dev0):
+    with timed(f"{span}.gather", mesh.devices):
         return _gather_dicts(parts, dev0, k)
 
 
