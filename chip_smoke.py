@@ -153,7 +153,10 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -164,6 +167,7 @@ sys.path.insert(0, REPO)
 from w2rap_contigger_tpu_torch import __main__ as cli  # noqa: E402
 from w2rap_contigger_tpu_torch import hbv2gfa  # noqa: E402
 from w2rap_contigger_tpu_torch import device as tdev  # noqa: E402
+from w2rap_contigger_tpu_torch.graph import build as gb  # noqa: E402
 from w2rap_contigger_tpu_torch.graph import validate  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import _build  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import bitkmer as bk  # noqa: E402
@@ -174,6 +178,7 @@ from w2rap_contigger_tpu_torch.ops import kmerize as kkm  # noqa: E402
 from w2rap_contigger_tpu_torch.ops import radix  # noqa: E402
 from w2rap_contigger_tpu_torch import native  # noqa: E402
 from w2rap_contigger_tpu_torch.parallel import mesh as tmesh  # noqa: E402
+from w2rap_contigger_tpu_torch.paths import flat_pather, pather  # noqa: E402
 from w2rap_contigger_tpu_torch.pipeline import step3_repath, step5_gaps  # noqa: E402
 from w2rap_contigger_tpu_torch.pipeline.driver import run_pipeline  # noqa: E402
 from w2rap_contigger_tpu_torch.pipeline import step6_simplify, step7_scaffold  # noqa: E402
@@ -1612,10 +1617,11 @@ def phase_fill_join(work: str):
         launches=json.dumps(launches), identical=True, changed=True, **split)
 
 
-def phase_step4(data: str) -> tuple[dict, int, list]:
+def phase_step4(data: str) -> tuple[dict, int, list, dict]:
     """Steps 1-4 at K=260 under lax, radix, then pallas; returns each
-    run's launches, the step-3 stream's row count and the planes step 3
-    of the radix run sorted (with num_keys and cmp_keys)."""
+    run's launches, the step-3 stream's row count, the planes step 3
+    of the radix run sorted (with num_keys and cmp_keys) and the lax
+    run's step2.count and step3.count spans."""
     os.environ["W2RAP_TIMELOG"] = "1"
     rows = {}
     step3_stream = []
@@ -1672,8 +1678,11 @@ def phase_step4(data: str) -> tuple[dict, int, list]:
                 recounts=tke.RADIX_RECOUNTS - recounts,
                 max_memory_allocated=torch.cuda.max_memory_allocated(),
                 launches=json.dumps(launches), step3_launches=json.dumps(step3))
+            split = _split()
+            if sort == "lax":
+                counts = {k: split[k] for k in ("step2.count", "step3.count")}
             say("ecoli_k260_split", sort=sort, **{
-                k: v for k, v in _split().items()
+                k: v for k, v in split.items()
                 if k.startswith(("step2.count", "step3", "step4"))})
             say("ecoli_k260_perf", sort=sort, perf=repr(perf))
             sort_kernels = {"radix": K4, "pallas": K3}.get(sort, ())
@@ -1696,42 +1705,90 @@ def phase_step4(data: str) -> tuple[dict, int, list]:
     say("ecoli_k260_identical", lax_vs_radix=True, lax_vs_pallas=True, jax_hashes=n)
     if not step3_stream:
         fail("step 3 of the radix run did not reach the partition sort")
-    return runs, rows["k2"], step3_stream
+    return runs, rows["k2"], step3_stream, counts
 
 
 class MeshWatch:
-    """Wraps the sharded step-2 count for one run: its stats (the rows
-    each shard owns, the rows and bytes exchanged), its peak device
-    memory (the peak statistics reset as it starts) and its wall."""
+    """Wraps the sharded functions for one run.  Step 2's and step 3's
+    counts (`counts`, by function): each one's stats (the rows each shard
+    owns, the rows and bytes exchanged, each owner's device ms of its sort
+    and of its K2), host waits, wall and peak device memory (the peak
+    statistics reset as it starts).  Every sharded call (both counts,
+    adjacencies, links, list ranking, both pathers) runs under torch's
+    sync debug mode: an operation that synchronises there is a host wait
+    that HOST_WAITS does not see, and lands in `syncs` with its stack."""
+
+    SHARDED = ((tke, "count_kmers_sharded"), (tke, "count_kmers_flat"),
+               (gb, "recompute_adjacencies"), (gb, "build_links"), (gb, "list_rank_sharded"),
+               (pather, "path_reads"), (flat_pather, "path_flat_sequences"))
+    COUNTS = ("count_kmers_sharded", "count_kmers_flat")
 
     def __enter__(self):
-        self._count = tke.count_kmers_sharded
-        self.stats = {}
-
-        def count(*a, **kw):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.time()
-            out = self._count(*a, stats=self.stats, **kw)
-            torch.cuda.synchronize()
-            self.seconds = time.time() - t0
-            self.peak = torch.cuda.max_memory_allocated()
-            return out
-
-        tke.count_kmers_sharded = count
+        self.counts, self.syncs, self._orig = {}, [], []
+        for mod, name in self.SHARDED:
+            self._orig.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, self._wrap(name, getattr(mod, name)))
         return self
 
     def __exit__(self, *exc):
-        tke.count_kmers_sharded = self._count
+        for mod, name, orig in self._orig:
+            setattr(mod, name, orig)
+
+    def _wrap(self, name, orig):
+        def call(*a, **kw):
+            if kw.get("mesh") is None and not any(isinstance(x, tmesh.Mesh) for x in a):
+                return orig(*a, **kw)
+            if name not in self.COUNTS:
+                with self._sync_debug(name):
+                    return orig(*a, **kw)
+            stats = kw["stats"] = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            waits = tdev.HOST_WAITS
+            t0 = time.time()
+            with self._sync_debug(name):
+                out = orig(*a, **kw)
+            torch.cuda.synchronize()
+            self.counts[name] = dict(stats=stats, seconds=time.time() - t0,
+                                     peak=torch.cuda.max_memory_allocated(),
+                                     host_waits=tdev.HOST_WAITS - waits)
+            return out
+        return call
+
+    @contextlib.contextmanager
+    def _sync_debug(self, name):
+        shown = warnings.showwarning
+
+        def hook(message, category, filename, lineno, file=None, line=None):
+            if "called a synchronizing CUDA operation" in str(message):
+                # the prefetch workers wait for their own uploads; only the
+                # thread that enqueues the shards' work must not wait
+                if threading.current_thread() is threading.main_thread():
+                    self.syncs.append((name, "".join(traceback.format_stack(limit=8)[:-1])))
+            else:
+                shown(message, category, filename, lineno, file, line)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
 
 
-def run_sharded(data: str, out: str, mesh, K: int, sort: str):
+def run_sharded(data: str, out: str, mesh, K: int, sort: str) -> dict:
     """Steps 1-3 through run_pipeline with an explicit mesh, --dump_all and
-    --dump_perf, counts reset just before; returns (launches, stats,
-    count seconds, count peak, wall)."""
+    --dump_perf, counts reset just before; fails if a host wait fell
+    between two shards' enqueues of a round or a sharded call
+    synchronised; returns the launches, the radix recounts, the MeshWatch
+    and the wall."""
     os.environ["W2RAP_SORT"] = sort
     sysinfo.timelog_reset()
     tdev.reset_launches()
+    tdev.reset_host_waits()
+    recounts = tke.RADIX_RECOUNTS
     t0 = time.time()
     try:
         with MeshWatch() as watch, contextlib.redirect_stdout(io.StringIO()) as said:
@@ -1746,19 +1803,32 @@ def run_sharded(data: str, out: str, mesh, K: int, sort: str):
         fail(f"the sharded run did not say it shards: {said.getvalue()!r}")
     validate.test_involution(hbv)
     validate.validate_paths(hbv, paths)
-    return dict(tdev.LAUNCHES), watch.stats, watch.seconds, watch.peak, time.time() - t0
+    inside = tdev.waits_inside_rounds(tdev.EVENTS)
+    if inside:
+        fail(f"{out}: a host wait fell between two shards' enqueues: {inside[:4]}")
+    if watch.syncs:
+        for name, stack in watch.syncs[:3]:
+            print(f"[sync] {name}\n{stack}", flush=True)
+        fail(f"{out}: {len(watch.syncs)} synchronising operations in sharded calls "
+             f"({sorted({name for name, _ in watch.syncs})})")
+    if set(watch.counts) != set(MeshWatch.COUNTS):
+        fail(f"{out}: the sharded counts did not run: {sorted(watch.counts)}")
+    return dict(launches=dict(tdev.LAUNCHES), recounts=tke.RADIX_RECOUNTS - recounts,
+                watch=watch, wall=time.time() - t0)
 
 
-def check_shard_launches(label: str, launches: dict, stats: dict, D: int, k1_chunks: int,
-                         sort: str):
+def check_shard_launches(label: str, run: dict, D: int, k1_chunks: int, sort: str):
     """K1 twice a chunk (the sizing pass and the exchange), K2 once an
-    owner in each of steps 2 and 3 (every owner holds rows), and the
-    sort back end's kernels."""
-    if min(stats["rows"]) <= 0:
-        fail(f"{label}: a shard owns no row {stats['rows']}")
-    if launches["kmerize"] != 2 * k1_chunks or launches["collapse"] != 2 * D:
+    owner in each of steps 2 and 3 (every owner holds rows; an exact radix
+    recount sorts again before its K2), and the sort back end's kernels."""
+    launches = run["launches"]
+    rows = run["watch"].counts["count_kmers_sharded"]["stats"]["rows"]
+    if min(rows) <= 0:
+        fail(f"{label}: a shard owns no row {rows}")
+    want_k2 = 2 * D
+    if launches["kmerize"] != 2 * k1_chunks or launches["collapse"] != want_k2:
         fail(f"{label}: K1 {launches['kmerize']} (want {2 * k1_chunks}), "
-             f"K2 {launches['collapse']} (want {2 * D})")
+             f"K2 {launches['collapse']} (want {want_k2})")
     for name in {"radix": K4, "pallas": K3}.get(sort, ()):
         if launches[name] <= 0:
             fail(f"{label}: kernel {name} was not launched")
@@ -1771,11 +1841,12 @@ def shard_chunks(n_reads: int, D: int) -> int:
     return sum(-(-max(0, min(per, n_reads - s * per)) // CHUNK_READS) for s in range(D))
 
 
-def phase_mesh(s200: str, data: str, count_peak: int):
+def phase_mesh(s200: str, data: str, count_peak: int, unsharded: dict):
     """Steps 1-3 over 4 logical shards of the card: 200 kb at K=200 under
     each sort against the unsharded lax run, then E. coli scale at K=260
-    (lax) against phase 6's lax run; with two cards or more, E. coli
-    again through --shard over the real cards."""
+    (lax) against phase 6's lax run, whose step2.count and step3.count
+    spans are `unsharded`; with two cards or more, E. coli again through
+    --shard over the real cards."""
     D = 4
     mesh = tmesh.make_mesh([DEV] * D)
     os.environ["W2RAP_TIMELOG"] = "1"
@@ -1783,35 +1854,49 @@ def phase_mesh(s200: str, data: str, count_peak: int):
     n200 = 2 * SMALL["pairs"]
     for sort in ("lax", "radix", "pallas"):
         out = f"{s200}/mesh_{sort}"
-        launches, stats, count_s, _, wall = run_sharded(s200, out, mesh, 200, sort)
-        check_shard_launches(f"200 kb mesh ({sort})", launches, stats, D,
-                             shard_chunks(n200, D), sort)
+        run = run_sharded(s200, out, mesh, 200, sort)
+        check_shard_launches(f"200 kb mesh ({sort})", run, D, shard_chunks(n200, D), sort)
         diffs = same_outputs(f"{s200}/k200", out, SMALL_K + LARGE_K)
         if diffs:
             fail(f"200 kb steps 1-3: {D} shards ({sort}) and unsharded differ in {diffs}")
-        say("mesh_200kb", shards=D, sort=sort, K=200, wall_s=f"{wall:.2f}",
-            count_s=f"{count_s:.3f}", rows_max=max(stats["rows"]),
+        count = run["watch"].counts["count_kmers_sharded"]
+        stats = count["stats"]
+        say("mesh_200kb", shards=D, sort=sort, K=200, wall_s=f"{run['wall']:.2f}",
+            count_s=f"{count['seconds']:.3f}", rows_max=max(stats["rows"]),
             rows_mean=f"{sum(stats['rows']) / D:.1f}", exchanged_bytes=stats["exchanged_bytes"],
-            kmerize=launches["kmerize"], collapse=launches["collapse"],
-            launches=json.dumps({n: v for n, v in launches.items() if v}), identical=True)
+            kmerize=run["launches"]["kmerize"], collapse=run["launches"]["collapse"],
+            recounts=run["recounts"], host_waits=tdev.HOST_WAITS,
+            launches=json.dumps({n: v for n, v in run["launches"].items() if v}),
+            identical=True)
     out = f"{data}/mesh_k260"
-    launches, stats, count_s, peak, wall = run_sharded(data, out, mesh, 260, "lax")
-    check_shard_launches("E. coli mesh", launches, stats, D, shard_chunks(2 * ECOLI["pairs"], D),
-                         "lax")
+    run = run_sharded(data, out, mesh, 260, "lax")
+    check_shard_launches("E. coli mesh", run, D, shard_chunks(2 * ECOLI["pairs"], D), "lax")
     diffs = same_outputs(f"{data}/k260_lax", out, SMALL_K + LARGE_K)
     if diffs:
         fail(f"E. coli K=260 steps 1-3: {D} shards and phase 6's lax run differ in {diffs}")
     split = _split()
-    say("mesh_ecoli", shards=D, sort="lax", K=260, wall_s=f"{wall:.2f}",
+    step2, step3 = (run["watch"].counts[name] for name in MeshWatch.COUNTS)
+    stats = step2["stats"]
+    say("mesh_ecoli", shards=D, sort="lax", K=260, wall_s=f"{run['wall']:.2f}",
         rows_max=max(stats["rows"]), rows_mean=f"{sum(stats['rows']) / D:.1f}",
         exchanged_rows=stats["exchanged_rows"], exchanged_bytes=stats["exchanged_bytes"],
-        kmerize=launches["kmerize"], collapse=launches["collapse"],
-        count_s=f"{count_s:.3f}", count_max_memory_allocated=peak,
+        kmerize=run["launches"]["kmerize"], collapse=run["launches"]["collapse"],
+        count_s=f"{step2['seconds']:.3f}", count_max_memory_allocated=step2["peak"],
         unsharded_count_max_memory_allocated=count_peak,
         small_k_graph_s=_perf_seconds(out, "SmallKGraph"),
         repath_in_memory_s=_perf_seconds(out, "RepathInMemory"), identical=True)
     say("mesh_ecoli_split", **{k: v for k, v in split.items()
                                if k.startswith(("step2.count", "step3.count"))})
+    # sharded beside unsharded (phase 6's lax run), and each owner's
+    # device ms of its sort and its K2 (CUDA events on its stream)
+    say("mesh_ecoli_counts", step2_count_s=split["step2.count"],
+        unsharded_step2_count_s=unsharded["step2.count"], step3_count_s=split["step3.count"],
+        unsharded_step3_count_s=unsharded["step3.count"],
+        step2_host_waits=step2["host_waits"], step3_host_waits=step3["host_waits"],
+        run_host_waits=tdev.HOST_WAITS, step3_count_max_memory_allocated=step3["peak"],
+        step2_owner_ms=json.dumps(stats["owner_ms"]),
+        step3_owner_ms=json.dumps(step3["stats"]["owner_ms"]), sync_ops=0,
+        waits_inside_rounds=0)
     cards = torch.cuda.device_count()
     if cards < 2:
         say("mesh_real_cards", real_cards=cards, skipped=True)
@@ -1961,10 +2046,10 @@ def main():
         phase_batched(data, launches, count_peak)
         say("phase5b", seconds=f"{time.time() - t0:.1f}")
         t0 = time.time()
-        runs, k2_rows, step3_stream = phase_step4(data)
+        runs, k2_rows, step3_stream, counts = phase_step4(data)
         say("phase6", seconds=f"{time.time() - t0:.1f}")
         t0 = time.time()
-        phase_mesh(s200, data, count_peak)
+        phase_mesh(s200, data, count_peak, counts)
         say("phase5c", seconds=f"{time.time() - t0:.1f}")
         t0 = time.time()
         phase_ecoli_gaps(work)

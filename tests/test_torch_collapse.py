@@ -57,7 +57,7 @@ def test_collapse_plain_matches_pallas(rng, W, min_count):
         torch.from_numpy(planes.view(np.int32)), min_count=min_count, tile=TILE
     )
     assert out.shape == planes.shape and tile_counts.shape == (8,)
-    table = compact_tiles(out, tile_counts, TILE).numpy().view(np.uint32)
+    table = compact_tiles(out, tile_counts, TILE, int(tile_counts.sum())).numpy().view(np.uint32)
     np.testing.assert_array_equal(table[:W].T, jw)
     np.testing.assert_array_equal((table[W] >> 8) & 0xFF, jctx)
     np.testing.assert_array_equal(table[W] & 0xFF, jcnt)
@@ -102,7 +102,7 @@ def test_collapse_midstream_sentinels_match_pallas(rng, W):
     out, tile_counts, low = kcol.collapse(
         torch.from_numpy(planes.view(np.int32)), min_count=4, tile=TILE
     )
-    table = compact_tiles(out, tile_counts, TILE).numpy().view(np.uint32)
+    table = compact_tiles(out, tile_counts, TILE, int(tile_counts.sum())).numpy().view(np.uint32)
     assert table.shape[1] == len(jw) > 0
     np.testing.assert_array_equal(table[:W].T, jw)
     np.testing.assert_array_equal((table[W] >> 8) & 0xFF, jctx)

@@ -22,12 +22,15 @@ from w2rap_contigger_tpu.parallel import mesh as pmesh
 from w2rap_contigger_tpu.pipeline import step2_small_k as jstep2
 from w2rap_contigger_tpu.pipeline import step3_repath as jstep3
 from w2rap_contigger_tpu_torch import __main__ as cli
+from w2rap_contigger_tpu_torch import device as tdev
 from w2rap_contigger_tpu_torch import state
 from w2rap_contigger_tpu_torch.core.reads import ReadSet
 from w2rap_contigger_tpu_torch.graph import build as tgb
 from w2rap_contigger_tpu_torch.ops import kmer_engine as tke
 from w2rap_contigger_tpu_torch.ops import radix
 from w2rap_contigger_tpu_torch.parallel import mesh as tmesh
+from w2rap_contigger_tpu_torch.paths import flat_pather as tflat
+from w2rap_contigger_tpu_torch.paths import pather as tpather
 from w2rap_contigger_tpu_torch.pipeline import step2_small_k as tstep2
 from w2rap_contigger_tpu_torch.pipeline import step3_repath as tstep3
 
@@ -117,8 +120,9 @@ def test_timed_synchronises_every_device(monkeypatch):
 
 
 def test_sharded_count_spans_wait_for_the_mesh(count_case, monkeypatch):
-    """The sharded count's .kmerize and .gather spans name every device
-    of the mesh; .exchange, .sort and .collapse name one shard's."""
+    """Each span of the sharded count covers its phase over every shard:
+    .kmerize, .size, .exchange, .sort, .collapse and .gather each open
+    once and name mesh.devices."""
     bases, lengths, quals, _, _ = count_case
     spans = {}
     timed = tke.timed
@@ -130,9 +134,108 @@ def test_sharded_count_spans_wait_for_the_mesh(count_case, monkeypatch):
     monkeypatch.setattr(tke, "timed", record)
     mesh = cpu_mesh(4)
     tke.count_kmers_sharded(bases, lengths, quals["hq"], 60, mesh, min_freq=2, chunk_reads=8)
-    assert spans["kmerize"] == spans["gather"] == [mesh.devices]
-    for name in ("exchange", "sort", "collapse"):
-        assert spans[name] and all(isinstance(d, torch.device) for d in spans[name])
+    assert set(spans) == {"kmerize", "size", "exchange", "sort", "collapse", "gather"}
+    for name, devices in spans.items():
+        assert devices == [mesh.devices], name
+
+
+def test_sharded_count_waits_do_not_grow_with_chunks(count_case):
+    """4 shards of 34 reads in chunks of 34 (4 chunks) and of 9 (16): the
+    same dictionary and histogram, the same host waits (the sizes, the
+    epilogue's read back, the histograms), every owner's sort and K2
+    enqueued before the epilogue's wait, and no wait inside a round of
+    enqueues."""
+    bases, lengths, quals, _, ref = count_case
+    mesh = cpu_mesh(4)
+    runs = []
+    for chunk_reads, chunks in ((34, 4), (9, 16)):
+        tdev.reset_host_waits()
+        stats = {}
+        d, hist = tke.count_kmers_sharded(bases, lengths, quals["hq"], 60, mesh, min_freq=2,
+                                          chunk_reads=chunk_reads, stats=stats)
+        events = list(tdev.EVENTS)
+        assert min(stats["rows"]) > 0 and stats["owner_ms"] == [None] * 4
+        assert events.count(("enqueue", "size:0")) == chunks // 4
+        assert [e for e in events if e[0] == "wait"] == [
+            ("wait", "sizes"), ("wait", "epilogue"), ("wait", "histogram")]
+        epilogue = events.index(("wait", "epilogue"))
+        for o in range(4):
+            assert ("enqueue", f"sort:{o}") in events[:epilogue]
+            assert ("enqueue", f"collapse:{o}") in events[:epilogue]
+        assert tdev.waits_inside_rounds(events) == []
+        runs.append((d, hist, tdev.HOST_WAITS))
+    (d4, h4, w4), (d16, h16, w16) = runs
+    assert w4 == w16 == 3
+    assert_dict_equal(d16, *state.dict_to_numpy(d4), h16, h4)
+    jd, jhist = ref["hq"]
+    assert_dict_equal(d4, jd.words, jd.counts, jd.ctx, h4, jhist)
+
+
+def test_waits_inside_rounds():
+    """A wait between two shards' enqueues of one round is reported; one
+    where a stage's round restarts is not."""
+    ok = [("enqueue", "lookup:0"), ("enqueue", "lookup:1"), ("wait", "lookup"),
+          ("enqueue", "lookup:0"), ("enqueue", "sort:0"), ("enqueue", "sort:1")]
+    assert tdev.waits_inside_rounds(ok) == []
+    bad = [("enqueue", "sort:0"), ("wait", "flags"), ("enqueue", "sort:1")]
+    assert tdev.waits_inside_rounds(bad) == [("sort:0", "flags", "sort:1")]
+
+
+def test_sharded_flat_count_prepares_each_chunk_once(monkeypatch):
+    """count_kmers_flat(mesh=) makes each chunk's host arrays once for
+    both passes, and equals the unsharded count at three host waits."""
+    rng = np.random.default_rng(5)
+    flat = rng.integers(0, 4, size=20000).astype(np.uint8)
+    seg = np.array([0, 7000, 7050, 15000, 20000])
+    starts = []
+    orig = tke._flat_chunk_host
+    monkeypatch.setattr(tke, "_flat_chunk_host",
+                        lambda *a: starts.append(a[3]) or orig(*a))
+    tdev.reset_host_waits()
+    d = tke.count_kmers_flat(flat, seg, 31, chunk_pos=1024, device="cpu", mesh=cpu_mesh(4))
+    assert tdev.HOST_WAITS == 3 and tdev.waits_inside_rounds(tdev.EVENTS) == []
+    assert sorted(starts) == list(range(0, len(flat) - 30, 1024))
+    ref = tke.count_kmers_flat(flat, seg, 31, chunk_pos=1024, device="cpu")
+    assert d.size > 0
+    assert_dict_equal(d, *state.dict_to_numpy(ref))
+
+
+def test_sharded_pathers_wait_once_a_round(slice_case):
+    """path_reads and path_flat_sequences on 4 logical shards give the
+    unsharded calls' paths, with one host wait a round, after every shard
+    of the round enqueued its lookup."""
+    seqs, quals, _, _ = slice_case
+    reads = ReadSet.from_sequences(seqs, quals)
+    d, _ = tke.count_kmers_device(reads.bases, reads.lengths, reads.quals, 60,
+                                  min_freq=2, device="cpu")
+    tgb.recompute_adjacencies(d)
+    hbv, fx, rx = tgb.build_hbv_from_edges(*tgb.build_unitigs(d), 60)
+    mesh = cpu_mesh(4)
+    ref = tpather.path_reads(reads, d, hbv, fx, rx, chunk_reads=64)
+    tdev.reset_host_waits()
+    got = tpather.path_reads(reads, d, hbv, fx, rx, chunk_reads=64, mesh=mesh)
+    assert len(ref.edges) > 0
+    for key in ("offsets", "edges", "start"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(ref, key), err_msg=key)
+    events = list(tdev.EVENTS)
+    assert tdev.HOST_WAITS == 4 and events[:5] == [
+        *(("enqueue", f"lookup:{i}") for i in range(4)), ("wait", "lookup")]
+    assert tdev.waits_inside_rounds(events) == []
+
+    flat = np.concatenate([np.asarray(q, dtype=np.uint8) for q in seqs])
+    seg = np.arange(0, len(flat) + 1, 150)
+    ref = tflat.path_flat_sequences(flat, seg, d, hbv, fx, rx, chunk_pos=2048)
+    tdev.reset_host_waits()
+    got = tflat.path_flat_sequences(flat, seg, d, hbv, fx, rx, chunk_pos=2048, mesh=mesh)
+    assert sum(len(p) for p in ref[0]) > 0
+    for a, b in zip(got[0], ref[0]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(got[1:], ref[1:]):
+        np.testing.assert_array_equal(a, b)
+    rounds = -(-(len(flat) - 59) // 2048 // 4)
+    events = list(tdev.EVENTS)
+    assert tdev.HOST_WAITS == rounds == events.count(("wait", "lookup"))
+    assert tdev.waits_inside_rounds(events) == []
 
 
 def test_sharded_count_of_no_valid_window(count_case):

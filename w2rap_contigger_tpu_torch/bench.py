@@ -13,7 +13,7 @@ rest 35.  W2RAP_SORT (lax, radix or pallas) picks the sort back end.
 Metric: canonical k=60 kmers counted per second per card,
 n_reads x (L - k + 1) over the device time of one kernel chain: K1
 (kmerize + canonicalize) over the already uploaded chunks into a new
-Stream, then count_epilogue (the sort under the chosen back end, K2
+Stream, then count_epilogues (the sort under the chosen back end, K2
 collapse, compaction into the device-resident dictionary).  These are
 the stages ops.kmer_engine.count_kmers_device composes.  The chain is
 timed with CUDA events, once to warm up and then CHAINS times; `value`

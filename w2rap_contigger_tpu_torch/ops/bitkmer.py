@@ -91,22 +91,21 @@ def _pad_mask(k: int) -> int:
 
 
 def to_successor(words: torch.Tensor, code, k: int) -> torch.Tensor:
-    """kmer[1:] + code (KMer::toSuccessor, src/kmers/KMer.h:174)."""
+    """kmer[1:] + code (KMer::toSuccessor, src/kmers/KMer.h:174); code a
+    Python int or an int64 tensor (an int is no host-to-device copy)."""
     hi = ((words[..., :-1] << 2) | (words[..., 1:] >> 30)) & FULL
     last = (words[..., -1:] << 2) & FULL
     out = torch.cat([hi, last], dim=-1)
-    code = torch.as_tensor(code, dtype=torch.int64, device=words.device)
     shift_last = 30 - 2 * ((k - 1) % 16)
     out[..., -1] = (out[..., -1] | (code << shift_last)) & _pad_mask(k)
     return out
 
 
 def to_predecessor(words: torch.Tensor, code, k: int) -> torch.Tensor:
-    """code + kmer[:-1]."""
+    """code + kmer[:-1]; code as in to_successor."""
     lo = ((words[..., 1:] >> 2) | ((words[..., :-1] & 3) << 30)) & FULL
     first = words[..., :1] >> 2
     out = torch.cat([first, lo], dim=-1)
-    code = torch.as_tensor(code, dtype=torch.int64, device=words.device)
     out[..., 0] = out[..., 0] | (code << 30)
     out[..., -1] = out[..., -1] & _pad_mask(k)
     return out

@@ -47,20 +47,20 @@ none on the host, so a leaf that cannot build raises.
 
 from __future__ import annotations
 
-import functools
+import itertools
 import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from ..device import resolve_device, timed
+from ..device import note, resolve_device, timed, to_host, wait_host
 from ..parallel.mesh import bucket_of, on, shard_chunk
 from . import bitkmer as bk
 from . import bitonic
 from . import context as kctx
 from . import radix
-from .collapse import TILE, collapse
+from .collapse import LOW_BINS, TILE, collapse
 from .kmerize import kmerize, pack_and_glen_host, pack_rows_host
 
 
@@ -256,11 +256,15 @@ class Stream:
         self.append(self.layout(words, ctx)[:, valid])
 
     def append(self, rows: torch.Tensor) -> None:
-        """Append laid-out rows (`layout`), copied from any device."""
+        """Append laid-out rows (`layout`), copied from any device on the
+        source's current stream, a plane at a time: each copy is
+        contiguous, so one from another card needs no staging buffer on
+        this card's current stream."""
         m = rows.shape[1]
         if self.n + m > self.buf.shape[1]:
             raise RuntimeError(f"stream of {self.buf.shape[1]} rows: {self.n} + {m} do not fit")
-        self.buf[:, self.n : self.n + m].copy_(rows, non_blocking=True)
+        for j in range(rows.shape[0]):
+            self.buf[j, self.n : self.n + m].copy_(rows[j], non_blocking=True)
         self.n += m
 
     def planes(self) -> tuple[torch.Tensor, str]:
@@ -338,45 +342,158 @@ def _lax_sorted(planes: torch.Tensor, W: int, ctx_in_pad: bool) -> torch.Tensor:
 
 
 def _radix_sorted(planes: torch.Tensor, W: int, ctx_in_pad: bool):
-    """Partition sort (K4a-d) on the first min(W, 4) words; None when a
-    slot overflowed or two distinct kmers tie on those words, and the
-    caller must recount exactly (kmer_engine.py:1161-1172, :1244-1287).
+    """Partition sort (K4a-d) on the first min(W, 4) words: (sorted
+    planes, flags), flags (2,) int64 on the device: non-zero when a slot
+    overflowed or two distinct kmers tie on those words, and the caller
+    must recount exactly (kmer_engine.py:1161-1172, :1244-1287).
 
     JAX compares 2 words; the port compares 4 (128 bits), which covers
     every kmer up to k=64: at k=60 on reads with errors, distinct kmers
     sharing their first 32 bases are common, so a 2-word comparator
     would raise the collision flag on nearly every data set."""
-    global RADIX_RECOUNTS
     cmp_keys = min(W, radix.MAX_CMP_KEYS)
     sp, overflow = radix.partition_sort(planes, num_keys=W, cmp_keys=cmp_keys)
     if ctx_in_pad:
         sp = _strip_ctx(sp)
     # on ctx-stripped words: equal kmers with other contexts do not collide
     bad = radix.collision_flag(sp, num_keys=W, cmp_keys=cmp_keys)
-    if int(overflow[0]) or int(bad):
-        RADIX_RECOUNTS += 1
-        return None
-    return sp
+    return sp, torch.stack([overflow[0].to(torch.int64), bad])
 
 
-def count_epilogue(stream: Stream, k: int, min_freq: int, span: str):
-    """Sort + K2 collapse + compaction of a filled stream: (KmerDict,
-    hist).  Shared by steps 2 and 3 (kmer_engine.py:1119-1207)."""
+def _sorted_stream(stream: Stream):
+    """The sort of a filled stream: (sorted planes, the planes kept for an
+    exact recount or None, flags (2,) int64 or None; _radix_sorted)."""
     W, ctx_in_pad = stream.W, stream.ctx_in_pad
-    dev = stream.buf.device
-    if stream.n == 0:
-        return empty_dict(k, dev), np.zeros(101, dtype=np.int64)
-    with timed(f"{span}.sort", dev):
-        planes, kind = stream.planes()
-        if kind == "pallas":  # the stream's own copy: sorted in place
-            sp = bitonic.bitonic_sort(planes, num_keys=W)
-        else:
-            sp = _radix_sorted(planes, W, ctx_in_pad) if kind == "radix" else None
-            if sp is None:
-                sp = _lax_sorted(planes, W, ctx_in_pad)
-        del planes
-    with timed(f"{span}.collapse", dev):
-        return dict_from_collapsed(collapse(sp, min_count=min_freq), W, k, min_freq)
+    planes, kind = stream.planes()
+    if kind == "pallas":  # the stream's own copy: sorted in place
+        return bitonic.bitonic_sort(planes, num_keys=W), None, None
+    if kind == "radix":
+        sp, flags = _radix_sorted(planes, W, ctx_in_pad)
+        return sp, planes, flags
+    return _lax_sorted(planes, W, ctx_in_pad), None, None
+
+
+def _collapse_enqueued(sp: torch.Tensor, min_freq: int):
+    """K2 on sorted planes, and the start of the copy to the host of what
+    the compaction needs: [kept rows, K2's low bins].
+    Returns ((out, tile_counts, low_bins), to_host copy)."""
+    collapsed = collapse(sp, min_count=min_freq)
+    _, tile_counts, low_bins = collapsed
+    vals = torch.cat([tile_counts.to(torch.int64).sum()[None], low_bins.to(torch.int64)])
+    return collapsed, to_host(vals)
+
+
+BIN_LANES = 256  # copies of a histogram that _bincount's atomic adds spread over
+
+
+def _bincount(x: torch.Tensor, bins: int) -> torch.Tensor:
+    """torch.bincount(x, minlength=bins) of x in [0, bins) as int64, on
+    the device with no host wait (torch.bincount reads x's maximum back):
+    element i adds into copy i mod BIN_LANES, so the adds of a warp never
+    meet on one address (into a single copy, they serialise)."""
+    idx = torch.arange(x.numel(), dtype=torch.int32, device=x.device) % BIN_LANES * bins
+    idx += x.to(torch.int32)
+    counts = torch.zeros(BIN_LANES * bins, dtype=torch.int32, device=x.device)
+    return counts.index_add_(0, idx, torch.ones_like(idx)).view(BIN_LANES, bins).sum(dim=0)
+
+
+def count_epilogues(streams: list, k: int, min_freq: int, span: str, mesh=None,
+                    marks: list | None = None):
+    """Sort + K2 collapse + compaction of filled streams, one an owner:
+    [(KmerDict, hist)] (kmer_engine.py:1119-1207).  Shared by steps 2 and
+    3; the one-device counts pass one stream and no mesh.
+
+    Every owner's sort (the `.sort` span) and K2 are enqueued, each on
+    its shard's stream (mesh.on), before one host wait reads back every
+    owner's kept rows and low bins; then every owner's compaction and
+    histogram are enqueued before a second wait reads the histograms.
+    Under radix, one wait more, once every owner's sort is enqueued, reads
+    their flags before K2: the unsorted planes are freed before K2 (as a
+    one-device sort frees them), and the owners whose flags are set are
+    sorted again exactly (a lax sort) before their K2; the dictionary is
+    the same.  marks, when given, receives each owner's four timing
+    events on a card (before and after its sort, before and after its K2
+    and read back; None on the CPU or for an empty owner)."""
+    global RADIX_RECOUNTS
+    W, ctx_in_pad = streams[0].W, streams[0].ctx_in_pad
+    devices = [st.buf.device for st in streams]
+    span_devices = mesh.devices if mesh is not None else devices[0]
+    hist0 = np.zeros(101, dtype=np.int64)
+    parts = [(empty_dict(k, dev), hist0.copy()) for dev in devices]
+    live = [o for o, st in enumerate(streams) if st.n]
+    ev = {o: [] for o in live}
+    sort = {}
+    with timed(f"{span}.sort", span_devices):
+        for o in live:
+            with on(mesh, o):
+                note("sort", o)
+                ev[o].append(_mark(devices[o]))
+                sort[o] = _sorted_stream(streams[o])
+                ev[o].append(_mark(devices[o]))
+        radix, pending = [o for o in live if sort[o][2] is not None], []
+        for o in radix:
+            with on(mesh, o):
+                pending.append(to_host(sort[o][2]))
+        flags = dict(zip(radix, wait_host(pending, "radix flags"))) if radix else {}
+        for o in live:
+            sp, planes, _ = sort[o]
+            if o in flags and flags[o].any():
+                RADIX_RECOUNTS += 1
+                with on(mesh, o):
+                    note("recount", o)
+                    sp = _lax_sorted(planes, W, ctx_in_pad)
+            sort[o] = sp
+            del sp, planes
+    with timed(f"{span}.collapse", span_devices):
+        coll, pending = {}, []
+        for o in live:
+            with on(mesh, o):
+                note("collapse", o)
+                ev[o].append(_mark(devices[o]))
+                coll[o], copy = _collapse_enqueued(sort.pop(o), min_freq)
+                ev[o].append(_mark(devices[o]))
+            pending.append(copy)
+        vals = dict(zip(live, wait_host(pending, "epilogue")))
+        pending = []
+        for o in live:
+            with on(mesh, o):
+                note("compact", o)
+                parts[o] = _dict_of(coll.pop(o), int(vals[o][0]), W, k)
+                pending.append(to_host(_bincount(parts[o].cnt.clamp(max=100), 101)))
+        for o, hist in zip(live, wait_host(pending, "histogram")):
+            parts[o] = (parts[o], _hist_of(hist, vals[o], min_freq))
+    if marks is not None:
+        marks[:] = [ev[o] if o in ev and ev[o][0] is not None else None
+                    for o in range(len(streams))]
+    return parts
+
+
+def _mark(dev: torch.device):
+    """A timing event on the current stream of a card; None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def _dict_of(collapsed, m: int, W: int, k: int) -> KmerDict:
+    """The KmerDict of K2's m kept rows (kmer_engine.py:1376-1398)."""
+    out, tile_counts, _ = collapsed
+    table = bk.from_raw32(compact_tiles(out, tile_counts, TILE, m))
+    pay = table[W]
+    return KmerDict(table[:W].T.contiguous(), pay & 0xFF, (pay >> 8) & 0xFF, k)
+
+
+def _hist_of(hist: np.ndarray, vals: np.ndarray, min_freq: int) -> np.ndarray:
+    """small_K.freqs's histogram: the kept rows' bins (_bincount), and
+    below min_freq K2's low bins (vals, _collapse_enqueued's read back;
+    :1399-1413)."""
+    hist = hist.astype(np.int64)
+    hi = min(min_freq, 101)
+    hist[1:hi] = vals[1 : 1 + LOW_BINS][1:hi]
+    hist[0] = 0
+    return hist
 
 
 def range_of(w0: torch.Tensor, range_bits: int) -> torch.Tensor:
@@ -387,11 +504,50 @@ def range_of(w0: torch.Tensor, range_bits: int) -> torch.Tensor:
     return (w0.to(torch.int64) & bk.FULL) >> (32 - range_bits)
 
 
+def _prefetched(host_fn, items, dev, stream=None):
+    """Yield host_fn(item)'s numpy arrays as tensors on `dev`, item by
+    item: item i+1's host work and upload run on a worker thread while
+    the caller's kernels run on item i.  On a card the worker copies from
+    pageable memory on its own current stream and waits for its copy
+    (pinning each array cost more than it saved on an H100 host: PERF.md
+    §6); the caller's `stream` (default: its current stream) waits for
+    the copy, and the tensors are marked as used there."""
+    items = list(items)
+    dev = torch.device(dev)
+    if stream is None and dev.type == "cuda":
+        stream = torch.cuda.current_stream(dev)
+
+    def work(item):
+        arrays = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in host_fn(item))
+        return arrays, (torch.cuda.current_stream(dev).record_event() if stream is not None
+                        else None)
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(work, items[0]) if items else None
+        for i in range(len(items)):
+            arrays, copied = fut.result()
+            if i + 1 < len(items):
+                fut = pool.submit(work, items[i + 1])
+            if copied is not None:
+                stream.wait_event(copied)
+                for t in arrays:
+                    t.record_stream(stream)
+            yield arrays
+
+
+def _round_robin(gens):
+    """(shard, item) from (shard, generator) pairs, one item of each in
+    turn until all are drained: the shards' workers run at once."""
+    for items in itertools.zip_longest(*(gen for _, gen in gens)):
+        for (s, _), item in zip(gens, items):
+            if item is not None:
+                yield s, item
+
+
 def _device_chunks(bases, lengths, quals, k: int, min_qual: int,
-                   chunk_reads: int, dev):
+                   chunk_reads: int, dev, stream=None):
     """Yield (packed rows, usable lengths) of each chunk of reads on
-    `dev`: chunk i+1's host pack + upload runs on a worker thread while
-    the caller's kernels run on chunk i."""
+    `dev`, packed and uploaded ahead on a worker thread (_prefetched)."""
     n = bases.shape[0]
 
     def host_chunk(start):
@@ -399,19 +555,9 @@ def _device_chunks(bases, lengths, quals, k: int, min_qual: int,
         pr, glen = pack_and_glen_host(
             bases[start:stop], quals[start:stop], lengths[start:stop], k, min_qual
         )
-        return (
-            torch.from_numpy(pr.view(np.int32)).to(dev),
-            torch.from_numpy(glen).to(dev),
-        )
+        return pr.view(np.int32), glen
 
-    starts = list(range(0, n, chunk_reads))
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        fut = pool.submit(host_chunk, starts[0])
-        for ci in range(len(starts)):
-            chunk = fut.result()
-            if ci + 1 < len(starts):
-                fut = pool.submit(host_chunk, starts[ci + 1])
-            yield chunk
+    return _prefetched(host_chunk, range(0, n, chunk_reads), dev, stream)
 
 
 def _count_chunks(chunks, capacity: int, k: int, L: int, min_freq: int, dev,
@@ -425,7 +571,7 @@ def _count_chunks(chunks, capacity: int, k: int, L: int, min_freq: int, dev,
             x = kmerize(pr_d, glen_d, k, L)
             stream.put(x[:W], x[W])
             del x
-    return count_epilogue(stream, k, min_freq, span)
+    return count_epilogues([stream], k, min_freq, span)[0]
 
 
 def count_kmers_device(bases, lengths, quals, k: int, min_qual: int = 7,
@@ -448,32 +594,16 @@ def count_kmers_device(bases, lengths, quals, k: int, min_qual: int = 7,
                          range_bits, range_index)
 
 
-def compact_tiles(out: torch.Tensor, tile_counts: torch.Tensor, tile: int):
+def compact_tiles(out: torch.Tensor, tile_counts: torch.Tensor, tile: int, m: int):
     """Gather each collapse tile's kept rows into one compact (W+1, m)
-    table (the counterpart of _compact_planes_dev, kmer_engine.py:1293)."""
+    table (the counterpart of _compact_planes_dev, kmer_engine.py:1293);
+    m is the kept rows, tile_counts' sum."""
     counts = tile_counts.to(torch.int64)
-    m = int(counts.sum())
     first = torch.cumsum(counts, 0) - counts
     base = torch.arange(counts.numel(), device=out.device) * tile - first
     src = torch.repeat_interleave(base, counts, output_size=m)
     src += torch.arange(m, device=out.device)
     return out[:, src]
-
-
-def dict_from_collapsed(collapsed, W: int, k: int, min_freq: int):
-    """(KmerDict, hist) from K2's outputs (kmer_engine.py:1376-1413)."""
-    out, tile_counts, low_bins = collapsed
-    table = bk.from_raw32(compact_tiles(out, tile_counts, TILE))
-    words = table[:W].T.contiguous()
-    pay = table[W]
-    ctx = (pay >> 8) & 0xFF
-    cnt = pay & 0xFF
-    hist = torch.bincount(cnt.clamp(max=100), minlength=101).cpu().numpy().astype(np.int64)
-    lb = low_bins.cpu().numpy()
-    hi = min(min_freq, 101)
-    hist[1:hi] = lb[1:hi]
-    hist[0] = 0
-    return KmerDict(words, cnt, ctx, k), hist
 
 
 MAX_RANGE_BITS = 8  # at most 256 hash ranges, as the JAX package's rule
@@ -602,18 +732,24 @@ def count_kmers_batched(bases, lengths, quals, k: int, min_qual: int = 7,
 # ---------------------------------------------------------------------------
 
 
-def _exchange(words: torch.Tensor, ctx: torch.Tensor, streams: list[Stream]) -> None:
-    """Send a chunk's valid rows to their owners' streams: bucket ids, a
-    stable split by owner, one copy a non-empty owner."""
-    D = len(streams)
-    valid = valid_windows(words)
-    rows = streams[0].layout(words, ctx)[:, valid]
-    owner, order = torch.sort(bucket_of(words[0][valid], D), stable=True)
-    rows = rows[:, order]
+def _owner_of(words: torch.Tensor, D: int) -> torch.Tensor:
+    """The shard that owns each window's kmer (its `bucket_of` hash), D
+    where the window is invalid."""
+    return torch.where(valid_windows(words), bucket_of(words[0], D), D)
+
+
+def _exchange(words: torch.Tensor, ctx: torch.Tensor, streams: list[Stream],
+              counts: list[int]) -> None:
+    """Send a chunk's valid rows to their owners' streams: a stable sort
+    by owner (the invalid windows last), then one copy a non-empty owner
+    of the counts[o] rows the sizing pass counted for it."""
+    rows = streams[0].layout(words, ctx)
+    order = torch.sort(_owner_of(words, len(streams)), stable=True)[1]
+    rows = rows[:, order[: sum(counts)]]
     start = 0
-    for o, m in enumerate(torch.bincount(owner, minlength=D).tolist()):
+    for st, m in zip(streams, counts):
         if m:
-            streams[o].append(rows[:, start : start + m])
+            st.append(rows[:, start : start + m])
         start += m
 
 
@@ -629,46 +765,71 @@ def _gather_dicts(parts, dev, k: int):
     return KmerDict(words[perm], cnt[perm], ctx[perm], k), sum(h for _, h in parts)
 
 
-def _count_exchanged(producers, mesh, W: int, k: int, min_freq: int, span: str,
-                     stats: dict | None):
-    """The sharded count over `producers`, (shard, fn) pairs whose fn()
-    gives a chunk's (words (W, m), ctx (m,)) raw int32 on the shard's
-    device: a sizing pass counts the rows each owner will hold, then each
-    chunk is made again and its rows go to their owners' streams, each
-    allocated to its exact size (never D full-size streams); each owner
-    sorts and collapses its stream on its device (sort back end + K2 at
-    min_freq: a kmer lives in one stream, so filtering a stream at a time
-    is filtering globally); the dictionaries gather on mesh.devices[0]."""
+def _count_exchanged(chunks, kmerize_of, mesh, W: int, k: int, min_freq: int,
+                     span: str, stats: dict | None):
+    """The sharded count of `chunks`, (shard, inputs) pairs iterated once
+    (the iterator may pack and upload as it goes), where kmerize_of(inputs)
+    gives the chunk's (words (W, m), ctx (m,)) raw int32 on the shard's
+    device.  Each shard's work is enqueued on its stream (mesh.on), and
+    the host waits do not grow with the chunks or the owners:
+
+    * `.size`: each chunk is kmerized and its rows counted by owner on
+      its device; one host wait reads those counts, which size every
+      owner's stream exactly (never D full-size streams) and place each
+      chunk's rows in it;
+    * `.exchange`: each chunk is kmerized again and its rows are copied
+      to their owners' streams;
+    * `.sort`, `.collapse` (count_epilogues): each owner sorts and
+      collapses its stream (sort back end + K2 at min_freq: a kmer lives
+      in one stream, so filtering a stream at a time is filtering
+      globally), two host waits reading every owner's sizes, then
+      every owner's histogram (under radix a third, before K2, reads
+      every owner's flags);
+    * `.gather`: the dictionaries gather on mesh.devices[0].
+
+    `stats`, when given, receives the rows each owner held, the rows and
+    bytes that left their source shard, and each owner's device ms of its
+    sort and of its K2 (`owner_ms`, None on the CPU or for an empty
+    owner)."""
     D = mesh.size
-    dev0 = mesh.devices[0]
-    owned = torch.zeros((D, D), dtype=torch.int64)  # [source shard, owner]
-    with timed(f"{span}.kmerize", mesh.devices):
-        for s, produce in producers:
-            with on(mesh.devices[s]):
-                words = produce()[0]
-                owned[s] += torch.bincount(bucket_of(words[0][valid_windows(words)], D),
-                                           minlength=D).cpu()
-            del words
+    devs = mesh.devices
+    kept, pending = [], []
+    with timed(f"{span}.kmerize", devs):
+        with timed(f"{span}.size", devs):
+            for s, inputs in chunks:
+                with mesh.on(s):
+                    note("size", s)
+                    pending.append(to_host(_bincount(_owner_of(kmerize_of(inputs)[0], D), D + 1)))
+                kept.append((s, inputs))
+            owned = np.stack(wait_host(pending, "sizes"))[:, :D]  # [chunk, owner]
+        rows = owned.sum(axis=0).tolist()
         backend = sort_backend()
-        rows = owned.sum(dim=0).tolist()
-        streams = [Stream(rows[o], W, k, backend, mesh.devices[o]) for o in range(D)]
-        for s, produce in producers:
-            with on(mesh.devices[s]):
-                words, ctx = produce()
-                with timed(f"{span}.exchange", mesh.devices[s]):
-                    _exchange(words, ctx, streams)
-            del words, ctx
-    if stats is not None:
-        moved = int(owned.sum() - owned.diagonal().sum())
-        stats.update(rows=rows, exchanged_rows=moved,
-                     exchanged_bytes=moved * 4 * streams[0].buf.shape[0])
-    parts = []
-    for o, st in enumerate(streams):
-        with on(mesh.devices[o]):
-            parts.append(count_epilogue(st, k, min_freq, span))
+        streams = []
+        for o in range(D):
+            with mesh.on(o):
+                streams.append(Stream(rows[o], W, k, backend, devs[o]))
+        planes = streams[0].buf.shape[0]
+        with timed(f"{span}.exchange", devs):
+            mesh.barrier()  # the sources write into buffers the owners allocated
+            for (s, inputs), counts in zip(kept, owned.tolist()):
+                with mesh.on(s):
+                    note("exchange", s)
+                    _exchange(*kmerize_of(inputs), streams, counts)
+            mesh.barrier()  # each owner sorts once every source's copies ended
+    moved = int(owned.sum() - sum(owned[i, s] for i, (s, _) in enumerate(kept)))
+    del kept
+    marks = []
+    parts = count_epilogues(streams, k, min_freq, span, mesh, marks)
     del streams
-    with timed(f"{span}.gather", mesh.devices):
-        return _gather_dicts(parts, dev0, k)
+    with timed(f"{span}.gather", devs):
+        mesh.join(*(t for d, _ in parts for t in (d.words, d.cnt, d.ctx)))
+        out = _gather_dicts(parts, devs[0], k)
+    if stats is not None:
+        stats.update(rows=rows, exchanged_rows=moved, exchanged_bytes=moved * 4 * planes,
+                     owner_ms=[None if ev is None else [ev[0].elapsed_time(ev[1]),
+                                                        ev[2].elapsed_time(ev[3])]
+                               for ev in marks])
+    return out
 
 
 def count_kmers_sharded(bases, lengths, quals, k: int, mesh, min_qual: int = 7,
@@ -679,34 +840,28 @@ def count_kmers_sharded(bases, lengths, quals, k: int, mesh, min_qual: int = 7,
     count_kmers_device's.
 
     The reads split into mesh.size contiguous shards; each shard packs
-    and uploads its reads once and runs K1 on its device; every valid row
-    goes to the stream of the shard that owns its `bucket_of` hash, and
-    each owner runs the sort back end and K2 on what it owns.  K1 runs
-    twice a chunk (the sizing pass, then the exchange).  `stats`, when
-    given, receives the rows each owner held and the rows and bytes that
-    left their source shard."""
+    its reads on a worker thread of its own and uploads them once, while
+    K1 runs on the chunks that came before (the chunks are taken from
+    the shards in turn); every valid row goes to the stream of the shard
+    that owns its `bucket_of` hash, and each owner runs the sort back end
+    and K2 on what it owns.  K1 runs twice a chunk (the sizing pass, then
+    the exchange); the packed chunks stay on their devices between the
+    two.  `stats`: _count_exchanged's."""
     dev0 = mesh.devices[0]
     n, L = bases.shape
     if L < k or n == 0:
         return empty_dict(k, dev0), np.zeros(101, dtype=np.int64)
     W = bk.nwords(k)
-    span = "step2.count"
 
-    def k1(pr_d, glen_d):
-        x = kmerize(pr_d, glen_d, k, L)
+    def k1(inputs):
+        x = kmerize(*inputs, k, L)
         return x[:W], x[W]
 
-    producers = []
-    with timed(f"{span}.pack", dev0):
-        for s, (lo, hi) in enumerate(mesh.slices(n)):
-            if hi > lo:
-                producers += [
-                    (s, functools.partial(k1, pr_d, glen_d))
-                    for pr_d, glen_d in _device_chunks(
-                        bases[lo:hi], lengths[lo:hi], quals[lo:hi], k, min_qual,
-                        chunk_reads, mesh.devices[s])
-                ]
-    return _count_exchanged(producers, mesh, W, k, min_freq, span, stats)
+    chunks = _round_robin([
+        (s, _device_chunks(bases[lo:hi], lengths[lo:hi], quals[lo:hi], k, min_qual,
+                           chunk_reads, mesh.devices[s], mesh.shard_streams[s]))
+        for s, (lo, hi) in enumerate(mesh.slices(n)) if hi > lo])
+    return _count_exchanged(chunks, k1, mesh, W, k, min_freq, "step2.count", stats)
 
 
 # ---------------------------------------------------------------------------
@@ -733,9 +888,30 @@ def kmerize_flat(packed, valid, has_pred, has_succ, pred_code, succ_code, k: int
     return bk.to_raw32(canon.T), bk.to_raw32(ctx)
 
 
+def _flat_chunk_host(flat_bases, seg_start, seg_end, st: int, C: int, k: int):
+    """Host arrays of flat positions st..st+C (:718-745): the packed bases
+    with a halo, (1, WR) raw int32, and (5, C) uint8 rows: valid,
+    has_pred, has_succ, the predecessor base, the successor base."""
+    T = len(flat_bases)
+    halo = 16 * ((k + 15) // 16)
+    cb = np.zeros(C + halo, dtype=np.uint8)
+    avail = min(T - st, C + halo)
+    cb[:avail] = flat_bases[st : st + avail]
+    pos = np.arange(st, st + C)
+    end = seg_end[st : st + C]
+    valid = pos + k <= end
+    hp = valid & (pos > seg_start[st : st + C])
+    hs = valid & (pos + k < end)
+    pc = flat_bases[np.maximum(pos - 1, 0)]
+    sc = flat_bases[np.minimum(pos + k, T - 1)]
+    return (pack_rows_host(cb[None]).view(np.int32),
+            np.stack([valid, hp, hs, pc, sc]).astype(np.uint8))
+
+
 def count_kmers_flat(flat_bases, seg_offsets, k: int, min_freq: int = 1,
                      chunk_pos: int | None = None, device="cuda",
-                     span: str = "step3.count", host: bool = False, mesh=None):
+                     span: str = "step3.count", host: bool = False, mesh=None,
+                     stats: dict | None = None):
     """Count canonical kmers over concatenated sequences (:663-833, its
     device pipeline branch :783-824); returns the KmerDict.
 
@@ -745,8 +921,11 @@ def count_kmers_flat(flat_bases, seg_offsets, k: int, min_freq: int = 1,
 
     mesh deals the position chunks over its shards (chunk i on shard i
     mod D, the chunk clamped so that every shard gets one) and counts
-    them as count_kmers_sharded does (JAX :750-775); the dictionary lands
-    on mesh.devices[0] and `device` is not used.
+    them as count_kmers_sharded does (JAX :750-775): each chunk's host
+    arrays are made and uploaded once, on a worker thread of its shard,
+    and stay on the shard's device for both passes; the dictionary lands
+    on mesh.devices[0], `device` is not used, and `stats` receives
+    _count_exchanged's.
 
     host=True counts with the native C++ leaf and returns a HostKmerDict
     (step 5's blob-local graphs; `device` is not used)."""
@@ -776,43 +955,28 @@ def count_kmers_flat(flat_bases, seg_offsets, k: int, min_freq: int = 1,
     seg_of = np.searchsorted(seg_offsets, np.arange(n_pos), side="right") - 1
     seg_end = seg_offsets[seg_of + 1]
     seg_start = seg_offsets[seg_of]
-    halo = 16 * ((k + 15) // 16)
 
-    def chunk(st, C, dev):
-        """(words (W, C), ctx (C,)) of positions st..st+C on dev."""
-        def upload(x, dtype=torch.int64):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(dtype).to(dev)
+    def host(st):
+        return _flat_chunk_host(flat_bases, seg_start, seg_end, st,
+                                min(chunk_pos, n_pos - st), k)
 
-        cb = np.zeros(C + halo, dtype=np.uint8)
-        avail = min(T - st, C + halo)
-        cb[:avail] = flat_bases[st : st + avail]
-        pos = np.arange(st, st + C)
-        end = seg_end[st : st + C]
-        valid = pos + k <= end
-        hp = valid & (pos > seg_start[st : st + C])
-        hs = valid & (pos + k < end)
-        pc = flat_bases[np.maximum(pos - 1, 0)]
-        sc = flat_bases[np.minimum(pos + k, T - 1)]
-        packed = bk.from_raw32(upload(pack_rows_host(cb[None]).view(np.int32), torch.int32))
-        return kmerize_flat(
-            packed, upload(valid, torch.bool), upload(hp, torch.bool),
-            upload(hs, torch.bool), upload(pc), upload(sc), k,
-        )
+    def kmerize_of(inputs):
+        packed, rows = inputs
+        return kmerize_flat(bk.from_raw32(packed), rows[0].bool(), rows[1].bool(),
+                            rows[2].bool(), rows[3].to(torch.int64), rows[4].to(torch.int64), k)
 
     if mesh is not None:
         chunk_pos = shard_chunk(chunk_pos, n_pos, mesh)
-        producers = [
-            (i % mesh.size, functools.partial(chunk, st, min(chunk_pos, n_pos - st),
-                                              mesh.devices[i % mesh.size]))
-            for i, st in enumerate(range(0, n_pos, chunk_pos))
-        ]
-        return _count_exchanged(producers, mesh, W, k, min_freq, span, None)[0]
+        starts = range(0, n_pos, chunk_pos)
+        chunks = _round_robin([
+            (s, _prefetched(host, starts[s :: mesh.size], mesh.devices[s], mesh.shard_streams[s]))
+            for s in range(min(mesh.size, len(starts)))])
+        return _count_exchanged(chunks, kmerize_of, mesh, W, k, min_freq, span, stats)[0]
     stream = Stream(n_pos, W, k, sort_backend(), dev)
     with timed(f"{span}.kmerize", dev):
-        for st in range(0, n_pos, chunk_pos):
-            stream.put(*chunk(st, min(chunk_pos, n_pos - st), dev))
-    d, _hist = count_epilogue(stream, k, min_freq, span)
-    return d
+        for inputs in _prefetched(host, range(0, n_pos, chunk_pos), dev):
+            stream.put(*kmerize_of(inputs))
+    return count_epilogues([stream], k, min_freq, span)[0][0]
 
 
 # ---------------------------------------------------------------------------

@@ -4,11 +4,14 @@ Counterpart of w2rap_contigger_tpu/parallel/mesh.py.  The JAX package
 runs `shard_map` over a `jax.sharding.Mesh`: one controller, one program
 a chip, collectives between them.  The port keeps that single-controller
 model without `torch.distributed`: a `Mesh` is a tuple of
-`torch.device`s, one Python process drives every shard in turn, and an
-exchange is a device-to-device copy.  Repeats are allowed: D logical
-shards of one device run the sharded code paths on a one-card machine
-(and on the CPU, in the tests), where a copy between two shards stays on
-the device.
+`torch.device`s, one Python process enqueues the work of every shard,
+each on a CUDA stream of its own (`Mesh.on`), before it waits on the
+host, so the shards run at once as shard_map's do; an exchange is a
+device-to-device copy, ordered by stream events (`Mesh.barrier`).
+Repeats are allowed: D logical shards of one device run the sharded code
+paths on a one-card machine (and on the CPU, in the tests, where the
+shards run in turn), where a copy between two shards stays on the
+device.
 
 What is sharded, and where (each bit-identical to the unsharded run):
 
@@ -29,6 +32,7 @@ What is sharded, and where (each bit-identical to the unsharded run):
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from dataclasses import dataclass
 
@@ -49,6 +53,51 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
+    @functools.cached_property
+    def shard_streams(self) -> tuple:
+        """A CUDA stream of its own for each CUDA shard (None for a CPU
+        shard), made at first use: logical shards of one card run at once
+        too."""
+        return tuple(torch.cuda.Stream(device=d) if d.type == "cuda" else None
+                     for d in self.devices)
+
+    @contextlib.contextmanager
+    def on(self, s: int):
+        """Shard s's device and stream made current while the shard
+        enqueues work: the hand-written kernels launch on the current
+        stream.  The stream first waits for the device's current stream,
+        so what the caller enqueued there (tables, dictionaries) is
+        ready.  Nothing for a CPU shard."""
+        stream = self.shard_streams[s]
+        if stream is None:
+            yield
+            return
+        with torch.cuda.device(self.devices[s]):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                yield
+
+    def barrier(self) -> None:
+        """Every shard's stream waits for the work enqueued so far on every
+        other's (before an exchange writes into buffers the owners
+        allocated, and before the owners read what every source wrote)."""
+        streams = [st for st in self.shard_streams if st is not None]
+        marks = [st.record_event() for st in streams]
+        for st in streams:
+            for mark in marks:
+                st.wait_event(mark)
+
+    def join(self, *tensors: torch.Tensor) -> None:
+        """The current stream of each device waits for the shard streams on
+        it; `tensors`, made on shard streams, are marked as used on it so
+        the caching allocator does not hand their memory on early."""
+        for dev, st in zip(self.devices, self.shard_streams):
+            if st is not None:
+                torch.cuda.current_stream(dev).wait_stream(st)
+        for t in tensors:
+            if t.device.type == "cuda":
+                t.record_stream(torch.cuda.current_stream(t.device))
+
     def slices(self, n: int) -> list[tuple[int, int]]:
         """Contiguous [lo, hi) slices of n rows, one a shard, each of
         ceil(n / size) rows but the last ones (which may be empty)."""
@@ -63,6 +112,12 @@ class Mesh:
             if dev not in copies:
                 copies[dev] = t.to(dev)
         return [copies[dev] for dev in self.devices]
+
+
+def on(mesh: Mesh | None, s: int):
+    """mesh.on(s), or nothing without a mesh (the unsharded caller's
+    current device and stream)."""
+    return mesh.on(s) if mesh is not None else contextlib.nullcontext()
 
 
 def make_mesh(devices) -> Mesh:
@@ -84,13 +139,6 @@ def make_mesh(devices) -> Mesh:
     if not out:
         raise ValueError("a mesh needs at least one device")
     return Mesh(tuple(out))
-
-
-def on(dev: torch.device):
-    """Context that makes `dev` the current CUDA device while a shard
-    launches the hand-written kernels (their C entries launch in the
-    current device's context); nothing for the CPU."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def shard_request(shard_devices: int = -1) -> int:

@@ -24,13 +24,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import timed
+from ..device import note, timed, to_host, upload, wait_host
 from ..ops import bitkmer as bk
 from ..ops import np_bitkmer as hbk
 from ..ops.kmer_engine import HostKmerDict
 from ..ops.kmerize import pack_rows_host
 from ..ops.lookup import n_iters_for, search
-from ..parallel.mesh import shard_chunk
+from ..parallel.mesh import on, shard_chunk
 from .pather import _native_path_lib
 
 
@@ -153,11 +153,9 @@ def path_flat_sequences(flat_bases, seg_offsets, d, hbv, fwd_xlat, rev_xlat,
         dev = d.device
         n_iters = n_iters_for(d.size)
 
-        def upload(x):
-            return torch.from_numpy(np.asarray(x, dtype=np.int64)).to(dev)
-
-        tables = (d.table_t(), *d.kdef, upload(fwd_xlat), upload(rev_xlat),
-                  upload((np.diff(hbv.edge_start) - k + 1)[fwd_xlat]))
+        tables = (d.table_t(), *d.kdef,
+                  *(upload(np.asarray(x, dtype=np.int64), dev) for x in (
+                      fwd_xlat, rev_xlat, (np.diff(hbv.edge_start) - k + 1)[fwd_xlat])))
         if mesh is None:
             devices, reps = [dev], [tables]
         else:
@@ -165,18 +163,28 @@ def path_flat_sequences(flat_bases, seg_offsets, d, hbv, fwd_xlat, rev_xlat,
             devices = mesh.devices
             reps = list(zip(*(mesh.replicate(t) for t in tables)))
         halo = 16 * ((k + 15) // 16)
-        with timed(f"{span}.lookup", dev):
-            for i, s in enumerate(range(0, n_pos, chunk_pos)):
-                shard = i % len(devices)
-                C = min(chunk_pos, n_pos - s)
-                cb = np.zeros(C + halo, dtype=np.uint8)
-                avail = min(T - s, C + halo)
-                cb[:avail] = flat_bases[s : s + avail]
-                packed = bk.from_raw32(torch.from_numpy(
-                    pack_rows_host(cb[None]).view(np.int32)).to(devices[shard]))
-                he, off = lookup_flat_core(packed, *reps[shard], k, n_iters, C)
-                all_e[s : s + C] = he.cpu().numpy()
-                all_o[s : s + C] = off.cpu().numpy()
+        starts = list(range(0, n_pos, chunk_pos))
+        with timed(f"{span}.lookup", devices):
+            # a round of chunks, one a shard, each enqueued on its shard's
+            # stream, then one host wait for the round
+            for r in range(0, len(starts), len(devices)):
+                pending, placed = [], []
+                for shard, s in enumerate(starts[r : r + len(devices)]):
+                    C = min(chunk_pos, n_pos - s)
+                    cb = np.zeros(C + halo, dtype=np.uint8)
+                    avail = min(T - s, C + halo)
+                    cb[:avail] = flat_bases[s : s + avail]
+                    with on(mesh, shard):
+                        note("lookup", shard)
+                        packed = bk.from_raw32(upload(pack_rows_host(cb[None]).view(np.int32),
+                                                      devices[shard]))
+                        he, off = lookup_flat_core(packed, *reps[shard], k, n_iters, C)
+                        pending += [to_host(he.to(torch.int32)), to_host(off.to(torch.int32))]
+                    placed.append((s, C))
+                got = wait_host(pending, "lookup")
+                for j, (s, C) in enumerate(placed):
+                    all_e[s : s + C] = got[2 * j]
+                    all_o[s : s + C] = got[2 * j + 1]
 
     # ---- segment decode, vectorized over all segments at once ---------
     kmers_b = np.diff(hbv.edge_start) - k + 1

@@ -27,12 +27,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import timed
+from ..device import note, timed, to_host, upload, wait_host
 from ..ops import bitkmer as bk
 from ..ops import np_bitkmer as hbk
 from ..ops.kmer_engine import HostKmerDict
 from ..ops.kmerize import pack_rows_host
 from ..ops.lookup import n_iters_for, search
+from ..parallel.mesh import on
 from .read_paths import ReadPathVec
 
 MAX_JITTER = 3  # BuildReadQGraph.cc:831
@@ -261,10 +262,6 @@ def edge_tail_words(hbv):
     return hbk.pack_codes(tails, ko)
 
 
-def _np32(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy().astype(np.int32)
-
-
 def _native_path_lib():
     """The C++ pathing leaf (native/path_kernel.cc), or None when it does
     not build."""
@@ -364,29 +361,31 @@ def path_reads(reads, d, hbv, fwd_xlat, rev_xlat,
                                   edge_tail_words(hbv))
     dev = d.device
     n_iters = n_iters_for(d.size)
-    tables = (
-        d.table_t(), *d.kdef,
-        torch.from_numpy(np.asarray(fwd_xlat, dtype=np.int64)),
-        torch.from_numpy(np.asarray(rev_xlat, dtype=np.int64)),
-        torch.from_numpy((np.diff(hbv.edge_start) - k + 1)[fwd_xlat].astype(np.int64)),
-    )
+    tables = (d.table_t(), *d.kdef,
+              *(upload(np.asarray(x, dtype=np.int64), dev) for x in (
+                  fwd_xlat, rev_xlat, (np.diff(hbv.edge_start) - k + 1)[fwd_xlat])))
     devices = mesh.devices if mesh is not None else (dev,)
-    reps = (list(zip(*(mesh.replicate(t) for t in tables))) if mesh is not None
-            else [tuple(t.to(dev) for t in tables)])
+    reps = list(zip(*(mesh.replicate(t) for t in tables))) if mesh is not None else [tables]
     tail_words = edge_tail_words(hbv)
 
     def sharded(fn, packed, cl):
         """fn's outputs over the chunk's reads, a slice a shard, as int32
-        numpy arrays in read order."""
-        outs = []
+        numpy arrays in read order: every shard's upload, lookup and copy
+        back are enqueued, each on its shard's stream, before the one host
+        wait."""
+        pending = []
         for i, (lo, hi) in enumerate(mesh.slices(len(cl)) if mesh is not None
                                      else [(0, len(cl))]):
             if hi > lo:
-                dp = bk.from_raw32(torch.from_numpy(packed[lo:hi].view(np.int32))
-                                   .to(devices[i]))
-                dl = torch.from_numpy(cl[lo:hi].astype(np.int64)).to(devices[i])
-                outs.append([_np32(t) for t in fn(dp, dl, *reps[i], k, n_iters, L)])
-        return [np.concatenate(parts) for parts in zip(*outs)]
+                with on(mesh, i):
+                    note("lookup", i)
+                    dp = bk.from_raw32(upload(packed[lo:hi].view(np.int32), devices[i]))
+                    dl = upload(cl[lo:hi].astype(np.int64), devices[i])
+                    pending.append([to_host(t.to(torch.int32))
+                                    for t in fn(dp, dl, *reps[i], k, n_iters, L)])
+        got = wait_host([c for outs in pending for c in outs], "lookup")
+        n_out = len(pending[0])
+        return [np.concatenate(got[j::n_out]) for j in range(n_out)]
 
     all_edges = []
     all_offs = []
@@ -395,7 +394,7 @@ def path_reads(reads, d, hbv, fwd_xlat, rev_xlat,
         stop = min(start + chunk_reads, n)
         cl = np.ascontiguousarray(reads.lengths[start:stop], dtype=np.int32)
         packed = pack_rows_host(reads.bases[start:stop])
-        with timed("step2.pathing.lookup", dev):
+        with timed("step2.pathing.lookup", devices):
             pos_s, e_s, off_s, ekm_s, nruns = sharded(lookup_compact, packed, cl)
         if int(nruns.max(initial=0)) <= pos_s.shape[1]:
             pe, offs, so = _decode_compact(pos_s, e_s, off_s, ekm_s, nruns, cl, k,
