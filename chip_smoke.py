@@ -11,12 +11,14 @@ exits non-zero and prints no result line:
    with g++;
 3. each kernel against its plain PyTorch version, element by element, on
    the card at the main path's shapes (K1 kmerize on one 65536-read chunk
-   at k=60 and k=200, L=250; K2 collapse on sorted W=4 and W=13 streams
+   at k=60 and k=200, L=250, timed over 50 launches into one output, and
+   on small ragged inputs at k = 31, 272, 320 and 640, with its registers
+   and spills at W = 4, 13, 17, 40; K2 collapse on sorted W=4 and W=13 streams
    with cross-tile runs, runs longer than a tile, counts above 255 and
    sentinels, and on a W=17 stream in the partition sort's layout, with
    sentinel runs mid-stream, and on a W=4 stream whose 100k-row run has
    one ctx value, so that the run never saturates), with both times,
-   bounds (the whole output written) and K2's registers and spills;
+   bounds (the whole output written) and K1's and K2's registers and spills;
 3b. K4a-d (the partition sort) against their plain versions, kernel by
    kernel and whole, bit-identical: K4a (the key-index tile sort,
    csrc/radix.cu on csrc/keyindex_net.cuh) first alone at cmp_keys 1-4
@@ -346,28 +348,83 @@ def _reads(rng, n, L):
     return bases, lengths, quals
 
 
-def check_kmerize(k: int):
-    rng = np.random.default_rng(SEED + k)
-    bases, lengths, quals = _reads(rng, CHUNK_READS, READ_LEN)
+K1_REPS = 50  # K1 launches timed between two CUDA events
+# (k, L) of K1's small ragged checks: W = 2, 17, 20, 40, each on 300 and
+# 301 reads (the planes 16-byte aligned, then not), reads shorter than k
+K1_SMALL = ((31, 340), (272, 660), (320, 660), (640, 700))
+K1_ATTRS_W = (4, 13, 17, 40)
+
+
+def kmerize_c(lib, pr_d, gl_d, k: int, L: int, out) -> None:
+    """One launch of a kernel library's K1 into out, through its C entry
+    (not the wrapper: not counted)."""
+    n = pr_d.shape[0]
+    _build.check(lib.w2rap_kmerize(
+        pr_d.data_ptr(), n, pr_d.shape[1], gl_d.data_ptr(), k, L - k + 1,
+        out.data_ptr(), n * (L - k + 1), torch.cuda.current_stream().cuda_stream),
+        "w2rap_kmerize")
+
+
+def k1_inputs(k: int, n: int = CHUNK_READS, L: int = READ_LEN, ragged: bool = False):
+    """Packed rows and usable lengths on the card: one step-2 chunk, or
+    (ragged) a few reads of L..k/2 bases with rare low-quality bases."""
+    rng = np.random.default_rng(SEED + k + n)
+    if ragged:
+        bases = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
+        lengths = rng.integers(k // 2, L + 1, size=n).astype(np.int32)
+        quals = rng.integers(30, 41, size=(n, L)).astype(np.uint8)
+        quals[rng.random((n, L)) < 0.0005] = 2
+    else:
+        bases, lengths, quals = _reads(rng, n, L)
     pr, glen = kkm.pack_and_glen_host(bases, quals, lengths, k, 7)
-    pr_d = torch.from_numpy(pr.view(np.int32)).to(DEV)
-    gl_d = torch.from_numpy(glen).to(DEV)
+    return torch.from_numpy(pr.view(np.int32)).to(DEV), torch.from_numpy(glen).to(DEV)
+
+
+def check_kmerize(k: int):
+    pr_d, gl_d = k1_inputs(k)
     got = kkm.kmerize(pr_d, gl_d, k, READ_LEN)
     want = kkm.kmerize_plain(pr_d, gl_d, k, READ_LEN)
     torch.cuda.synchronize()
     err = max_abs_err([got], [want])
     if err or not torch.equal(got, want):
         fail(f"K1 kmerize k={k} differs from its plain version (max_abs_err {err})")
-    ms = time_ms(lambda: kkm.kmerize(pr_d, gl_d, k, READ_LEN))
+    # K1_REPS launches into one preallocated output, after a warm-up
+    lib = _build.library()
+    out = torch.empty_like(got)
+    ms = time_ms(lambda: kmerize_c(lib, pr_d, gl_d, k, READ_LEN, out), K1_REPS)
+    if not torch.equal(out, want):
+        fail(f"K1 kmerize k={k}: the timed launches differ from the plain version")
     plain_ms = time_ms(lambda: kkm.kmerize_plain(pr_d, gl_d, k, READ_LEN))
     valid = int((got[0] != -1).sum())
     # the output write is the bound: W+1 planes, against the packed rows
     b, by = bound_ms(got.numel() * 4 + pr_d.numel() * 4 + gl_d.numel() * 4)
     res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
            "bound_by": by, "library_ms": None}
+    attrs = kkm.kmerize_attrs(bk.nwords(k))
     say("kmerize", k=k, reads=CHUNK_READS, L=READ_LEN, rows=got.shape[1],
-        valid_rows=valid, **fmt(res))
+        valid_rows=valid, **fmt(res), share=f"{b / ms:.3f}", reps=K1_REPS,
+        regs=attrs["regs"], local_bytes=attrs["local_bytes"])
     return res
+
+
+def check_kmerize_small():
+    """K1 bit for bit against its plain version on small ragged inputs at
+    W = 2..40, then its registers and spills."""
+    cases = 0
+    for k, L in K1_SMALL:
+        for n in (300, 301):
+            pr_d, gl_d = k1_inputs(k, n, L, ragged=True)
+            got = kkm.kmerize(pr_d, gl_d, k, L)
+            want = kkm.kmerize_plain(pr_d, gl_d, k, L)
+            if not torch.equal(got, want):
+                fail(f"K1 kmerize k={k} L={L} n={n} differs from its plain version "
+                     f"(max_abs_err {max_abs_err([got], [want])})")
+            if not (want[0] != -1).any():
+                fail(f"K1 small check k={k} L={L} n={n} has no valid window")
+            cases += 1
+    say("kmerize_small", cases=cases, k=",".join(str(k) for k, _ in K1_SMALL), identical=True)
+    for W in K1_ATTRS_W:
+        say("kmerize_attrs", W=W, **kkm.kmerize_attrs(W))
 
 
 def sorted_stream(W: int, n: int, seed: int, regions: int = 0,
@@ -1987,6 +2044,7 @@ def main():
     t0 = time.time()
     k1 = check_kmerize(60)
     check_kmerize(200)
+    check_kmerize_small()
     k2 = check_collapse(4, STEP2_ROWS, min_count=4)
     check_collapse(13, COLLAPSE_ROWS, min_count=1)
     check_collapse(17, COLLAPSE_ROWS, min_count=1, regions=16)

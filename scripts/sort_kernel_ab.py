@@ -101,10 +101,11 @@ VARIANTS = {
 }
 
 
-def build_variant(name: str):
-    """The kernel library of this checkout with VARIANTS[name] applied,
-    built in a copy under csrc/build/variants/<name>."""
-    src, pat, rep = VARIANTS[name]
+def build_variant(name: str, spec=None):
+    """The kernel library of this checkout with VARIANTS[name] (or spec:
+    source, pattern, replacement) applied, built in a copy under
+    csrc/build/variants/<name>."""
+    src, pat, rep = spec or VARIANTS[name]
     root = os.path.join(_build.BUILD_DIR, "variants", name)
     pkg = os.path.join(root, "w2rap_contigger_tpu_torch")
     shutil.rmtree(root, ignore_errors=True)

@@ -1,5 +1,7 @@
 """K1 kmerize: the port's plain version against the JAX package's Pallas
-kernel in interpret mode, and the CUDA kernel against the plain version.
+kernel in interpret mode (k = 60, 200) and its XLA `kmerize_chunk`
+(k = 320, 640: W = 20 and 40, beyond the Pallas tests' reach), and the
+CUDA kernel against the plain version.
 
 Row orders differ by design (the port emits row r*P + p, the TPU kernel a
 position permutation), so rows are compared as sorted multisets of
@@ -12,6 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from w2rap_contigger_tpu.ops import bitkmer as hbk
+from w2rap_contigger_tpu.ops import kmer_engine as hke
 from w2rap_contigger_tpu.ops import pallas_kmer as pk
 from w2rap_contigger_tpu_torch import device as tdev
 from w2rap_contigger_tpu_torch.ops import kmerize as kkm
@@ -57,6 +60,33 @@ def test_kmerize_plain_matches_pallas(rng, k):
     np.testing.assert_array_equal(p_rows, j_rows)
 
 
+@pytest.mark.parametrize("k,L", [(320, 340), (640, 660)])
+def test_kmerize_plain_matches_xla_wide(rng, k, L):
+    """W = 20 and 40 (the CLI's largest K): reads of L..k/2 bases, rare
+    low-quality bases, against the JAX package's kmerize_chunk."""
+    n = 24
+    bases = rng.integers(0, 4, size=(n, L)).astype(np.uint8)
+    lengths = rng.integers(k // 2, L + 1, size=n).astype(np.int32)
+    lengths[: n // 3] = L
+    quals = rng.integers(7, 41, size=(n, L)).astype(np.uint8)
+    quals[rng.random((n, L)) < 0.0005] = 3
+    jw, jctx, jvalid = hke.kmerize_chunk(
+        jnp.asarray(bases), jnp.asarray(lengths), jnp.asarray(quals), k=k, min_qual=7
+    )
+    pr, glen = kkm.pack_and_glen_host(bases, quals, lengths, k, 7)
+    planes = kkm.kmerize(
+        torch.from_numpy(pr.view(np.int32)), torch.from_numpy(glen), k, L
+    )
+    W = hbk.nwords(k)
+    assert planes.shape == (W + 1, n * (L - k + 1))
+    got = planes.numpy().view(np.uint32)
+    jw = np.asarray(jw)
+    assert (got[:W] != 0xFFFFFFFF).any(axis=0).sum() == np.asarray(jvalid).sum() > 0
+    np.testing.assert_array_equal(
+        _sorted_rows(got[:W].T, got[W]), _sorted_rows(jw, np.asarray(jctx))
+    )
+
+
 def test_pack_host_matches_numpy(rng):
     bases, lengths, quals = _reads(rng, 300, 250)
     pr, glen = kkm.pack_and_glen_host(bases, quals, lengths, 60, 7)
@@ -73,18 +103,32 @@ def test_kmerize_checks_inputs():
         kkm.kmerize(pr, gl, 60, 300)  # 16 words cannot hold 300 bases
     with pytest.raises(ValueError):
         kkm.kmerize(pr, gl, 300, 250)
+    # W = 41 is past the kernel's reach (k <= 640), on either path
+    pr44 = torch.zeros((4, 44), dtype=torch.int32)
+    for fn in (kkm.kmerize, kkm.kmerize_plain):
+        with pytest.raises(ValueError, match="W=1..40"):
+            fn(pr44, gl, 641, 700)
 
 
 @pytest.mark.cuda
-def test_kmerize_kernel_matches_plain(rng):
+@pytest.mark.parametrize("k", [31, 60, 200, 272, 320, 640])
+def test_kmerize_kernel_matches_plain(rng, k):
+    """W = 2..40 on 4097 reads (not a multiple of 4: the planes are not
+    16-byte aligned unless P is) and on 4096 (aligned), some shorter than k."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    for k in (60, 200):
-        bases, lengths, quals = _reads(rng, 4096, 250)
-        pr, glen = kkm.pack_and_glen_host(bases, quals, lengths, k, 7)
-        pr_d = torch.from_numpy(pr.view(np.int32)).cuda()
-        gl_d = torch.from_numpy(glen).cuda()
+    L = max(250, k + 60)
+    n = 4097
+    bases = rng.integers(0, 4, size=(n, L)).astype(np.uint8)
+    lengths = rng.integers(k // 2, L + 1, size=n).astype(np.int32)
+    quals = rng.integers(7, 41, size=(n, L)).astype(np.uint8)
+    quals[rng.random((n, L)) < 0.0005] = 3
+    pr, glen = kkm.pack_and_glen_host(bases, quals, lengths, k, 7)
+    assert (glen < k).any() and (glen > k).any()
+    pr_d = torch.from_numpy(pr.view(np.int32)).cuda()
+    gl_d = torch.from_numpy(glen).cuda()
+    for rows in (n, n - 1):
         before = tdev.LAUNCHES["kmerize"]
-        got = kkm.kmerize(pr_d, gl_d, k, 250)
+        got = kkm.kmerize(pr_d[:rows], gl_d[:rows], k, L)
         assert tdev.LAUNCHES["kmerize"] == before + 1
-        assert torch.equal(got, kkm.kmerize_plain(pr_d, gl_d, k, 250))
+        assert torch.equal(got, kkm.kmerize_plain(pr_d[:rows], gl_d[:rows], k, L))

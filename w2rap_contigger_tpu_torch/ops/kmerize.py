@@ -27,6 +27,8 @@ from . import _build
 from . import bitkmer as bk
 from . import context as kctx
 
+MAX_W = 40  # k <= 640, the CLI's largest K (csrc/kmerize.cu instantiates W = 1..40)
+
 
 def pack_rows_host(bases):
     """(N, L) u8 codes -> (N, ceil(L/16)) u32 big-endian 2-bit rows."""
@@ -98,8 +100,8 @@ def _check(packed: torch.Tensor, glen: torch.Tensor, k: int, L: int) -> int:
         raise ValueError("packed and glen on different devices")
     if packed.shape[1] != (L + 15) // 16:
         raise ValueError(f"packed rows hold {packed.shape[1]} words, L={L} needs {(L + 15) // 16}")
-    if not 1 <= bk.nwords(k) <= 17:
-        raise ValueError(f"k={k}: the kmerize kernel takes W=1..17 words")
+    if not 1 <= bk.nwords(k) <= MAX_W:
+        raise ValueError(f"k={k}: the kmerize kernel takes W=1..{MAX_W} words")
     if L < k:
         raise ValueError(f"L={L} < k={k}: no windows")
     return L - k + 1
@@ -133,6 +135,11 @@ def kmerize_plain(packed: torch.Tensor, glen: torch.Tensor, k: int, L: int):
     ctx = torch.where(valid, ctx, 0)
     planes = torch.cat([canon.reshape(n * P, W).T, ctx.reshape(1, n * P)])
     return bk.to_raw32(planes).contiguous()
+
+
+def kmerize_attrs(W: int) -> dict:
+    """Registers, spills and static shared memory of K1's kernel for W words."""
+    return _build.kernel_attrs("w2rap_kmerize_attrs", W)
 
 
 def kmerize(packed: torch.Tensor, glen: torch.Tensor, k: int, L: int):
