@@ -13,6 +13,7 @@ import torch
 from w2rap_contigger_tpu.ops import kmer_engine as ke
 from w2rap_contigger_tpu_torch import bench, state
 from w2rap_contigger_tpu_torch.ops import kmer_engine as tke
+from _torch_guards import time_limited  # noqa: F401
 
 READS = 256
 # 256 reads of a 5 kb genome (about 10x in kmers): most kmers reach

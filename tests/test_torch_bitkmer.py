@@ -9,6 +9,7 @@ from w2rap_contigger_tpu.ops import bitkmer as hbk
 from w2rap_contigger_tpu.ops import context as hctx
 from w2rap_contigger_tpu_torch.ops import bitkmer as bk
 from w2rap_contigger_tpu_torch.ops import context as kctx
+from _torch_guards import time_limited  # noqa: F401
 
 
 def _kmers(rng, n, k):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from w2rap_contigger_tpu.ops import pallas_sort as ps
 from w2rap_contigger_tpu_torch import device as tdev
 from w2rap_contigger_tpu_torch.ops import bitonic
+from _torch_guards import time_limited  # noqa: F401
 
 FULL = np.uint32(0xFFFFFFFF)
 

@@ -13,6 +13,7 @@ from w2rap_contigger_tpu.ops import pallas_collapse as pcol
 from w2rap_contigger_tpu_torch import device as tdev
 from w2rap_contigger_tpu_torch.ops import collapse as kcol
 from w2rap_contigger_tpu_torch.ops.kmer_engine import compact_tiles
+from _torch_guards import time_limited  # noqa: F401
 
 FULL = np.uint32(0xFFFFFFFF)
 TILE = 256  # port tile == JAX tile_rows=2 x 128 lanes

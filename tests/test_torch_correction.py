@@ -20,6 +20,7 @@ from w2rap_contigger_tpu_torch.ops import kmer_engine as ke
 from w2rap_contigger_tpu_torch.ops import precorrect as tpc
 from w2rap_contigger_tpu_torch.paths import fillpairs as tfill
 from w2rap_contigger_tpu_torch.paths import flat_pather, pather
+from _torch_guards import time_limited  # noqa: F401
 
 
 def _port(reads):

@@ -23,6 +23,7 @@ from w2rap_contigger_tpu_torch import state
 from w2rap_contigger_tpu_torch.graph import build as tgb
 from w2rap_contigger_tpu_torch.graph import gapfill as tgf
 from w2rap_contigger_tpu_torch.ops import kmer_engine as tke
+from _torch_guards import time_limited  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = 32

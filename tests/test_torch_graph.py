@@ -21,6 +21,7 @@ from w2rap_contigger_tpu_torch.graph import build as tgb
 from w2rap_contigger_tpu_torch.ops import bitkmer as bk
 from w2rap_contigger_tpu_torch.ops.lookup import n_iters_for
 from w2rap_contigger_tpu_torch.paths import pather as tpather
+from _torch_guards import time_limited  # noqa: F401
 
 K = 60
 L = 100

@@ -14,6 +14,7 @@ import torch
 from w2rap_contigger_tpu.ops import kmer_engine as ke
 from w2rap_contigger_tpu_torch.ops import kmer_engine as tke
 from w2rap_contigger_tpu_torch import state
+from _torch_guards import time_limited  # noqa: F401
 
 
 def _reads(rng, k):

@@ -18,6 +18,7 @@ from w2rap_contigger_tpu.ops import kmer_engine as hke
 from w2rap_contigger_tpu.ops import pallas_kmer as pk
 from w2rap_contigger_tpu_torch import device as tdev
 from w2rap_contigger_tpu_torch.ops import kmerize as kkm
+from _torch_guards import time_limited  # noqa: F401
 
 
 def _reads(rng, n, L):

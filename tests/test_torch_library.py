@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_guards import time_limited  # noqa: F401
+
 MODULES = ("utils.random", "utils.reporting", "utils.peaks", "core.efasta", "core.pairs",
            "ops.spectra", "ops.packalign", "ops.readstack", "ops.align", "ops.ultra")
 PACKAGES = ("w2rap_contigger_tpu", "w2rap_contigger_tpu_torch")

@@ -33,6 +33,7 @@ from w2rap_contigger_tpu_torch.paths import flat_pather as tflat
 from w2rap_contigger_tpu_torch.paths import pather as tpather
 from w2rap_contigger_tpu_torch.pipeline import step2_small_k as tstep2
 from w2rap_contigger_tpu_torch.pipeline import step3_repath as tstep3
+from _torch_guards import time_limited  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

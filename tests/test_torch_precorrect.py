@@ -14,6 +14,7 @@ from w2rap_contigger_tpu.core.reads import ReadSet
 from w2rap_contigger_tpu.ops import precorrect as jpc
 from w2rap_contigger_tpu_torch.core.reads import ReadSet as TReadSet
 from w2rap_contigger_tpu_torch.ops import precorrect as tpc
+from _torch_guards import time_limited  # noqa: F401
 
 
 def _both(seqs, quals):

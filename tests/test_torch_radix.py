@@ -23,6 +23,7 @@ from w2rap_contigger_tpu_torch import device as tdev
 from w2rap_contigger_tpu_torch.ops import bitonic, radix
 from w2rap_contigger_tpu_torch.ops import kmer_engine as tke
 from test_torch_bitonic import _key_index_net, _levels
+from _torch_guards import time_limited  # noqa: F401
 
 FULL = np.uint32(0xFFFFFFFF)
 

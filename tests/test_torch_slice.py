@@ -16,6 +16,7 @@ import torch
 from w2rap_contigger_tpu.pipeline.driver import run_pipeline
 from w2rap_contigger_tpu_torch import __main__ as cli
 from w2rap_contigger_tpu_torch import device as tdev
+from _torch_guards import time_limited  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -17,6 +17,7 @@ from w2rap_contigger_tpu_torch import __main__ as cli
 from w2rap_contigger_tpu_torch.graph import validate
 from w2rap_contigger_tpu_torch.ops import kmer_engine as tke
 from w2rap_contigger_tpu_torch.ops import radix
+from _torch_guards import time_limited  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LARGE_K = ("pe.large_K.hbv.npz", "pe.large_K.paths.npz")

@@ -18,6 +18,7 @@ import pytest
 from w2rap_contigger_tpu.pipeline.driver import run_pipeline
 from w2rap_contigger_tpu_torch import __main__ as cli
 from w2rap_contigger_tpu_torch.graph.hbv import HyperBasevector
+from _torch_guards import time_limited  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL_K = ("pe.small_K.hbv.npz", "pe.small_K.paths.npz")

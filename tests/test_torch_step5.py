@@ -51,6 +51,7 @@ from w2rap_contigger_tpu_torch.graph.hbv import HyperBasevector
 from w2rap_contigger_tpu_torch.paths.partners import partners_to_ends
 from w2rap_contigger_tpu_torch.paths.read_paths import ReadPathVec
 from w2rap_contigger_tpu_torch.pipeline import step5_gaps as t5
+from _torch_guards import time_limited  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKPOINTS = tuple(

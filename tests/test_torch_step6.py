@@ -27,6 +27,7 @@ from w2rap_contigger_tpu_torch.graph.hbv import HyperBasevector
 from w2rap_contigger_tpu_torch.ops import kmer_engine as ke
 from w2rap_contigger_tpu_torch.paths import pather
 from w2rap_contigger_tpu_torch.paths.read_paths import ReadPathVec
+from _torch_guards import time_limited  # noqa: F401
 
 PACKAGES = ("w2rap_contigger_tpu", "w2rap_contigger_tpu_torch")
 HBV_FIELDS = ("edge_bases", "edge_start", "to_left", "to_right", "inv")
