@@ -53,6 +53,9 @@ def test_word_ops_match_numpy(rng, k):
         _eq(bk.to_successor(tw, c, k), hbk.to_successor(w, np.uint32(c), k))
         _eq(bk.to_predecessor(tw, c, k), hbk.to_predecessor(w, np.uint32(c), k))
     _eq(bk.last_base(tw, k), hbk.last_base(w, k))
+    for rows in (tw, tw[:0]):  # no rows, as a graph of smooth cycles alone gives
+        np.testing.assert_array_equal(bk.unpack_words(rows, k).numpy(),
+                                      hbk.unpack_words(rows.numpy(), k))
 
 
 @pytest.mark.parametrize("k", [25, 60, 200])

@@ -22,6 +22,7 @@ from w2rap_contigger_tpu_torch.ops import bitkmer as bk
 from w2rap_contigger_tpu_torch.ops.lookup import n_iters_for
 from w2rap_contigger_tpu_torch.paths import pather as tpather
 from _torch_guards import time_limited  # noqa: F401
+import _unitig_cases as uc
 
 K = 60
 L = 100
@@ -108,6 +109,55 @@ def test_unitigs_and_hbv_match(built):
         np.testing.assert_array_equal(getattr(hbv, name), getattr(jhbv, name))
     assert hbv.n_vertices == jhbv.n_vertices and hbv.n_edges > 2
     assert bk.is_palindrome(d.words, K).any()
+
+
+@pytest.mark.parametrize("case, k", [
+    ("plain", 60), ("plain", 200), ("palindrome", 60), ("palindrome", 200),
+    ("hairpin", 59), ("cycle", 60), ("cycle", 200), ("circle", 60), ("single", 60),
+    ("empty", 60),
+])
+def test_device_assembly_matches_numpy_route(case, k):
+    """build_unitigs on a device dict (here the CPU) against its numpy
+    route (host=True) and the JAX package's host route, on one dictionary
+    (`_unitig_cases`), with the host's share counted."""
+    flat, seg = uc.pieces(case, k)
+    (got, want), d, raw = uc.both_routes(flat, seg, k, "cpu")
+    uc.assert_same(got, want, d, k)
+    if case != "circle":
+        # the JAX package's assembly raises IndexError on a dictionary
+        # with no linear chain
+        jd = ke.KmerDict(*raw, k)
+        jeb, jes = gb.build_unitigs(jd, host=True)
+        for a, b in zip(got[:5], (jeb, jes, jd.edge_id, jd.edge_offset, jd.edge_rc)):
+            np.testing.assert_array_equal(a, b)
+    counts = got[5]
+    assert (counts["host_tie_chains"] > 0) == (case == "palindrome")
+    assert (counts["host_cycle_nodes"] > 0) == (case in ("cycle", "circle"))
+    if case == "circle":
+        # every k-mer on the plasmid's cycle, walked by the host; one edge,
+        # the plasmid (or its reverse complement) from some base, closed
+        # by its first k-1 bases again
+        assert counts["chains"] == 0 and counts["host_cycle_nodes"] == d.size > 0
+        eb, es = got[0], got[1]
+        n = d.size
+        assert list(es) == [0, n + k - 1]
+        np.testing.assert_array_equal(eb[n:], eb[: k - 1])
+        ring = np.tile(eb[:n], 2).tobytes()
+        tile = flat[seg[0] : seg[1]]
+        assert tile.tobytes() in ring or (3 - tile)[::-1].tobytes() in ring
+    elif case == "single":
+        assert counts["chains"] == 2 * d.size and len(got[1]) - 1 == d.size
+    elif case == "empty":
+        assert d.size == 0 and len(got[1]) == 1
+    elif case == "hairpin":
+        # a k-mer whose successor is its reverse complement: the link the
+        # hairpin guard breaks
+        w = d.words
+        rc = bk.rc_words(w, k)
+        assert any(((bk.to_successor(a, c, k) == b).all(1)).any()
+                   for a, b in ((w, rc), (rc, w)) for c in range(4))
+    else:
+        assert len(got[1]) > 2
 
 
 def _pather_inputs(built):

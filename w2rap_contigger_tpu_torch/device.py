@@ -24,6 +24,11 @@ LAUNCHES: dict[str, int] = {
     "bitonic_cross_stage": 0, "bitonic_merge": 0,
 }
 
+# graph.build.build_unitigs since the last reset: chains assembled, and
+# what the host still finished: chains its tie loop settled (a chain
+# whose head is its mirror's head) and nodes of smooth cycles it walked
+ASSEMBLY: dict[str, int] = {"chains": 0, "host_tie_chains": 0, "host_cycle_nodes": 0}
+
 # the sharded paths' host waits for device data since the last reset
 # (wait_host), and the last of their enqueues and waits in order:
 # ("enqueue", "<stage>:<shard>") or ("wait", "<what was read>")
@@ -32,8 +37,9 @@ EVENTS: deque = deque(maxlen=4096)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ASSEMBLY):
+        for name in counts:
+            counts[name] = 0
 
 
 def count_launch(name: str) -> None:

@@ -12,8 +12,12 @@ Counterpart of w2rap_contigger_tpu/graph/build.py on its device route
 
 All three are torch on the dictionary's device, or sharded over a
 parallel.mesh.Mesh (`mesh=`: slices of the rows or nodes a shard, the
-table replicated a device; JAX parallel/mesh.py:247-357).  The chain assembly
-after ranking (build.py:539-654, `_emit_cycles` :666) and
+table replicated a device; JAX parallel/mesh.py:247-357).  So is the
+chain assembly after ranking (`_assemble_on_device`): it groups the
+chains by a counting placement (`place_chains`) where the JAX package
+sorts (build.py:539-654), and leaves to the host only the chains whose
+head is their mirror's head and the smooth cycles (`_emit_cycles`,
+build.py:666).  The numpy assembly, copied, stays for host dicts;
 `build_hbv_from_edges` / `_palindromic_edges` (:725-839) are host numpy,
 copied with their imports redirected to jax-free modules.  The table is
 not padded (PyTorch has no compile cache to keep shapes stable for), so
@@ -33,7 +37,7 @@ import math
 import numpy as np
 import torch
 
-from ..device import timed
+from ..device import ASSEMBLY, timed
 from ..ops import bitkmer as bk
 from ..ops import context as kctx
 from ..ops.kmer_engine import HostKmerDict
@@ -402,11 +406,14 @@ def build_unitigs(d, span: str = "step2.unitigs", host: bool = False, mesh=None)
 
     Returns (edge_bases flat uint8, edge_start (E+1) int64) and fills the
     KDef planes d.edge_id / d.edge_offset / d.edge_rc (host numpy) and,
-    for a device dict, d.kdef (their device copies, for pathing).  The
-    device part (links, list ranking, download) is timed as
-    `<span>.device`.  A host dict (or host=True) builds its links and
-    ranks on the host (build.py:452-476).  A mesh shards the links and
-    the list ranking (build.py:488-511); the chain assembly is the same.
+    for a device dict, d.kdef (their device copies, for pathing).
+
+    A device dict builds its links and ranks (timed as `<span>.device`)
+    and assembles its chains on its device (`_assemble_on_device`); a
+    mesh shards the links and the list ranking (build.py:488-511).  A
+    host dict (or host=True) builds its links and ranks on the host
+    (build.py:452-476) and assembles in numpy: the JAX package's route,
+    which the tests hold the device route to.
     """
     M = d.size
     k = d.k
@@ -418,32 +425,28 @@ def build_unitigs(d, span: str = "step2.unitigs", host: bool = False, mesh=None)
         d.edge_offset = np.zeros(0, np.int32)
         d.edge_rc = np.zeros(0, bool)
         if not on_host:
-            d.kdef = _kdef_to_device(d, d.device)
+            z = torch.zeros(0, dtype=torch.int64, device=d.device)
+            d.kdef = (z, z.clone(), z.to(torch.bool))
         return np.zeros(0, np.uint8), np.zeros(1, np.int64)
 
-    if on_host:
-        words = d.words
-        ctx = d.ctx.astype(np.uint32)
-        lib = _native_graph_lib()
-        if lib is not None:
-            nxt = _build_links_native(lib, words, ctx, k)
-            head, rank, on_cycle = _list_rank_native(lib, nxt)
-        else:
-            nxt = _build_links_host(words, ctx, k)
-            head, rank, on_cycle = _list_rank_host(nxt, rank_iters_for(M))
-    else:
-        dev = d.device
-        with timed(f"{span}.device", dev):
-            nxt_d = build_links(d.words, d.ctx, k, n_iters_for(M), mesh)
+    if not on_host:
+        with timed(f"{span}.device", d.device):
+            nxt = build_links(d.words, d.ctx, k, n_iters_for(M), mesh)
             if mesh is None:
-                head_d, rank_d, cyc_d = list_rank(nxt_d, rank_iters_for(M))
+                ranked = list_rank(nxt, rank_iters_for(M))
             else:
-                head_d, rank_d, cyc_d = list_rank_sharded(mesh, nxt_d, rank_iters_for(M))
-            nxt = nxt_d.cpu().numpy().astype(np.int32)
-            head = head_d.cpu().numpy().astype(np.int32)
-            rank = rank_d.cpu().numpy().astype(np.int32)
-            on_cycle = cyc_d.cpu().numpy()
-        words = d.host("words")
+                ranked = list_rank_sharded(mesh, nxt, rank_iters_for(M))
+        return _assemble_on_device(d, nxt, *ranked)
+
+    words = d.words
+    ctx = d.ctx.astype(np.uint32)
+    lib = _native_graph_lib()
+    if lib is not None:
+        nxt = _build_links_native(lib, words, ctx, k)
+        head, rank, on_cycle = _list_rank_native(lib, nxt)
+    else:
+        nxt = _build_links_host(words, ctx, k)
+        head, rank, on_cycle = _list_rank_host(nxt, rank_iters_for(M))
     rcw = hbk.rc_words(words, k)
     kmer_last = hbk.last_base(words, k).astype(np.uint8)  # (M,)
     rc_last = hbk.last_base(rcw, k).astype(np.uint8)
@@ -456,9 +459,11 @@ def build_unitigs(d, span: str = "step2.unitigs", host: bool = False, mesh=None)
     lin_nodes = lin_nodes_u[order]
     lin_heads = head[lin_mask][order]
 
+    # [: len] keeps a dictionary of smooth cycles alone (no linear node)
+    # at no chain, where the JAX package indexes an empty array
     seg_start = np.flatnonzero(
         np.concatenate([[True], lin_heads[1:] != lin_heads[:-1]])
-    )
+    )[: len(lin_nodes)]
     seg_len = np.diff(np.concatenate([seg_start, [len(lin_nodes)]]))
     n_chains = len(seg_start)
     seg_head = lin_nodes[seg_start]
@@ -490,14 +495,8 @@ def build_unitigs(d, span: str = "step2.unitigs", host: bool = False, mesh=None)
     pos_rank = np.arange(len(lin_nodes)) - np.repeat(seg_start, seg_len)
     flat_all[cstart[pos_chain] + (k - 1) + pos_rank] = lastb
 
-    for ci in tie_idx:
-        seq = flat_all[cstart[ci] : cstart[ci + 1]]
-        rcseq = (3 - seq)[::-1]
-        a, b = seq.tobytes(), rcseq.tobytes()
-        if a < b:
-            keep[ci] = True
-        elif a == b:
-            keep[ci] = hori[ci] == 0  # palindrome: keep one copy
+    _settle_ties(keep, tie_idx, flat_all, cstart, hori)
+    ASSEMBLY["chains"] += n_chains
 
     kept_idx = np.flatnonzero(keep)
     n_lin_edges = len(kept_idx)
@@ -525,38 +524,193 @@ def build_unitigs(d, span: str = "step2.unitigs", host: bool = False, mesh=None)
 
     # ---- cycles (host walk; rare) -------------------------------------
     if on_cycle.any():
-        extra_edges, extra_kdef = _emit_cycles(
-            nxt, on_cycle, words, rcw, kmer_last, rc_last, k, M, n_lin_edges
+        edge_bases, edge_start, _ = _append_cycles(
+            edge_bases, edge_start, (edge_id, edge_offset, edge_rc),
+            nxt, on_cycle, words, rcw, kmer_last, rc_last, k, M,
         )
-        if extra_edges:
-            add_flat, add_start = HyperBasevector.from_edge_list(k, extra_edges)
-            edge_bases = np.concatenate([edge_bases, add_flat])
-            edge_start = np.concatenate(
-                [edge_start, edge_start[-1] + add_start[1:]]
-            )
-            for i, e, j, o in extra_kdef:
-                if edge_id[i] >= 0:
-                    raise RuntimeError("preoccupied kmer in cycle")
-                edge_id[i] = e
-                edge_offset[i] = j
-                edge_rc[i] = bool(o)
 
     if np.any(edge_id < 0):
         raise RuntimeError("kmers not covered by any edge")
     d.edge_id = edge_id
     d.edge_offset = edge_offset
     d.edge_rc = edge_rc
-    if not on_host:
-        d.kdef = _kdef_to_device(d, d.device)
     return edge_bases, edge_start
 
 
-def _kdef_to_device(d, dev):
-    return (
-        torch.from_numpy(d.edge_id.astype(np.int64)).to(dev),
-        torch.from_numpy(d.edge_offset.astype(np.int64)).to(dev),
-        torch.from_numpy(d.edge_rc).to(dev),
+def place_chains(nodes, head, rank, n_heads: int):
+    """Linear nodes grouped by chain, chains in ascending head order and
+    each in rank order: np.lexsort((rank, head)), as a counting placement.
+    List ranking gives a chain's nodes the ranks 0..len-1, so each node
+    lands at start[head] + rank, start the exclusive cumulative sum of
+    the chain lengths.  Returns (placed, cnt, start): cnt[h] nodes have
+    head h, placed from start[h] on.  A rank outside its chain, or a
+    (head, rank) two nodes share, leaves a slot of `placed` at -1."""
+    n = nodes.shape[0]
+    cnt = torch.bincount(head, minlength=n_heads)
+    start = torch.cumsum(cnt, 0) - cnt
+    pos = torch.where(rank < cnt[head], start[head] + rank, n)
+    placed = torch.full((n + 1,), -1, dtype=nodes.dtype, device=nodes.device)
+    placed[pos] = nodes
+    return placed[:n], cnt, start
+
+
+def _assemble_on_device(d, nxt, head, rank, on_cycle):
+    """build_unitigs' chain assembly for a device dict, on its device:
+    the numpy route's edges, numbering, bases and KDef planes, with the
+    chains grouped by place_chains.  Only the outputs come to the host,
+    with the rare chains the host tie loop settles and, when there are
+    smooth cycles, what _append_cycles walks."""
+    words, k, M = d.words, d.k, d.size
+    dev = words.device
+    lin_nodes, cnt, start = place_chains(
+        *(t[~on_cycle] for t in (torch.arange(2 * M, device=dev), head, rank)), 2 * M)
+    n_lin = lin_nodes.shape[0]
+    seg_head = torch.nonzero(cnt).squeeze(1)  # a chain's head has rank 0
+    seg_len = cnt[seg_head]
+    seg_start = start[seg_head]
+    seg_tail = lin_nodes[seg_start + seg_len - 1]
+    n_chains = seg_head.shape[0]
+
+    # ---- keep exactly one of each chain/mirror pair -------------------
+    head_w = _oriented_words(words, seg_head, k)
+    mirror_head_w = bk.rc_words(_oriented_words(words, seg_tail, k), k)
+    keep = bk.words_lt(head_w, mirror_head_w)
+    tie_idx = torch.nonzero(bk.words_eq(head_w, mirror_head_w)).squeeze(1)
+
+    # ---- every chain's bases: the head's first k-1, then each node's
+    # last (rc's last base = the complement of the first) ---------------
+    nid = lin_nodes % M
+    nori = lin_nodes >= M
+    lastb = torch.where(nori, 3 - (words[:, 0] >> 30)[nid], bk.last_base(words, k)[nid])
+    chain_lens = seg_len + (k - 1)
+    cstart = _exclusive_cumsum(chain_lens)
+    flat_all = torch.empty(int(cstart[-1]), dtype=torch.uint8, device=dev)
+    flat_all[cstart[:-1, None] + torch.arange(k - 1, device=dev)] = bk.unpack_words(head_w, k)[:, : k - 1]
+    pos_chain = torch.repeat_interleave(torch.arange(n_chains, device=dev), seg_len,
+                                        output_size=n_lin)
+    pos_rank = torch.arange(n_lin, device=dev) - seg_start[pos_chain]
+    flat_all[cstart[pos_chain] + (k - 1) + pos_rank] = lastb.to(torch.uint8)
+
+    if tie_idx.numel():
+        t_lens = chain_lens[tie_idx]
+        t_start = _exclusive_cumsum(t_lens)
+        t_flat = flat_all[_ragged_gather(cstart[tie_idx], t_start, t_lens)].cpu().numpy()
+        t_keep = np.zeros(len(t_lens), bool)
+        _settle_ties(t_keep, np.arange(len(t_lens)), t_flat, t_start.cpu().numpy(),
+                     (seg_head[tie_idx] >= M).cpu().numpy())
+        keep[tie_idx] = torch.from_numpy(t_keep).to(dev)
+    ASSEMBLY["chains"] += n_chains
+
+    kept_idx = torch.nonzero(keep).squeeze(1)
+    n_lin_edges = kept_idx.shape[0]
+    chain_eid = torch.full((n_chains,), -1, dtype=torch.int64, device=dev)
+    chain_eid[kept_idx] = torch.arange(n_lin_edges, device=dev)
+    kept_lens = chain_lens[kept_idx]
+    edge_start_d = _exclusive_cumsum(kept_lens)
+    edge_bases_d = flat_all[_ragged_gather(cstart[kept_idx], edge_start_d, kept_lens)]
+
+    # ---- per-kmer KDef assignment: each selected kmer placed once -----
+    sel = chain_eid[pos_chain] >= 0
+    kmer_sel = nid[sel]
+    broken, preoccupied = torch.stack([
+        (lin_nodes < 0).any(), (torch.bincount(kmer_sel, minlength=M) > 1).any(),
+    ]).tolist()
+    if broken:
+        raise RuntimeError("broken unitig links: a chain's ranks are not 0..len-1")
+    if preoccupied:
+        raise RuntimeError("preoccupied kmer — broken unitig links")
+    edge_id_d = torch.full((M,), -1, dtype=torch.int64, device=dev)
+    edge_offset_d = torch.zeros(M, dtype=torch.int64, device=dev)
+    edge_rc_d = torch.zeros(M, dtype=torch.bool, device=dev)
+    edge_id_d[kmer_sel] = chain_eid[pos_chain[sel]]
+    edge_offset_d[kmer_sel] = pos_rank[sel]
+    edge_rc_d[kmer_sel] = nori[sel]
+
+    edge_bases, edge_start = edge_bases_d.cpu().numpy(), edge_start_d.cpu().numpy()
+    kdef = (edge_id_d.to(torch.int32).cpu().numpy(),
+            edge_offset_d.to(torch.int32).cpu().numpy(), edge_rc_d.cpu().numpy())
+
+    # ---- cycles (host walk; rare) -------------------------------------
+    if on_cycle.any():
+        words_h = d.host("words")
+        rcw = hbk.rc_words(words_h, k)
+        edge_bases, edge_start, cyc = _append_cycles(
+            edge_bases, edge_start, kdef, nxt.cpu().numpy(), on_cycle.cpu().numpy(),
+            words_h, rcw, hbk.last_base(words_h, k).astype(np.uint8),
+            hbk.last_base(rcw, k).astype(np.uint8), k, M,
+        )
+        cyc_d = torch.from_numpy(cyc).to(dev)
+        for plane, host_plane in zip((edge_id_d, edge_offset_d, edge_rc_d), kdef):
+            plane[cyc_d] = torch.from_numpy(host_plane[cyc]).to(dev, plane.dtype)
+
+    if np.any(kdef[0] < 0):
+        raise RuntimeError("kmers not covered by any edge")
+    d.edge_id, d.edge_offset, d.edge_rc = kdef
+    d.kdef = (edge_id_d, edge_offset_d, edge_rc_d)
+    return edge_bases, edge_start
+
+
+def _oriented_words(words, nodes, k: int):
+    """Packed words of oriented nodes on the device (rc where n >= M)."""
+    M = words.shape[0]
+    w = words[nodes % M]
+    return torch.where((nodes >= M)[:, None], bk.rc_words(w, k), w)
+
+
+def _exclusive_cumsum(lens):
+    """[0, cumsum(lens)...]: (len + 1,) int64 on lens' device."""
+    out = torch.zeros(lens.shape[0] + 1, dtype=torch.int64, device=lens.device)
+    torch.cumsum(lens, 0, out=out[1:])
+    return out
+
+
+def _ragged_gather(src_start, dst_start, lens):
+    """Source positions of the segments [src_start[i], +lens[i]) laid out
+    from dst_start[i] (dst_start the exclusive cumsum of lens)."""
+    total = int(dst_start[-1])
+    off = torch.repeat_interleave(src_start - dst_start[:-1], lens, output_size=total)
+    return off + torch.arange(total, device=lens.device)
+
+
+def _settle_ties(keep, tie_idx, flat, cstart, hori) -> None:
+    """Set keep[ci] for the chains ci in tie_idx, whose head equals their
+    mirror's head (flat[cstart[ci]:cstart[ci + 1]] their bases, hori[ci]
+    their head's orientation): keep the chain whose sequence is below its
+    reverse complement, and of a palindrome the forward-headed copy."""
+    for ci in tie_idx:
+        seq = flat[cstart[ci] : cstart[ci + 1]]
+        rcseq = (3 - seq)[::-1]
+        a, b = seq.tobytes(), rcseq.tobytes()
+        if a < b:
+            keep[ci] = True
+        elif a == b:
+            keep[ci] = hori[ci] == 0  # palindrome: keep one copy
+    ASSEMBLY["host_tie_chains"] += len(tie_idx)
+
+
+def _append_cycles(edge_bases, edge_start, kdef, nxt, on_cycle, words, rcw,
+                   kmer_last, rc_last, k, M):
+    """The smooth cycles' edges after the linear ones, and their kmers'
+    entries in the host KDef planes kdef = (edge_id, edge_offset,
+    edge_rc).  Returns (edge_bases, edge_start, the kmers set)."""
+    edge_id, edge_offset, edge_rc = kdef
+    extra_edges, extra_kdef = _emit_cycles(
+        nxt, on_cycle, words, rcw, kmer_last, rc_last, k, M, len(edge_start) - 1
     )
+    ASSEMBLY["host_cycle_nodes"] += len(extra_kdef)
+    if extra_edges:
+        add_flat, add_start = HyperBasevector.from_edge_list(k, extra_edges)
+        edge_bases = np.concatenate([edge_bases, add_flat])
+        edge_start = np.concatenate(
+            [edge_start, edge_start[-1] + add_start[1:]]
+        )
+    for i, e, j, o in extra_kdef:
+        if edge_id[i] >= 0:
+            raise RuntimeError("preoccupied kmer in cycle")
+        edge_id[i] = e
+        edge_offset[i] = j
+        edge_rc[i] = bool(o)
+    return edge_bases, edge_start, np.array([i for i, _, _, _ in extra_kdef], dtype=np.int64)
 
 
 def _ragged_arange(lens):

@@ -117,6 +117,13 @@ def last_base(words: torch.Tensor, k: int) -> torch.Tensor:
     return (words[..., nwords(k) - 1] >> shift) & 3
 
 
+def unpack_words(words: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., W) packed k-mers -> (..., k) uint8 base codes."""
+    shifts = torch.arange(30, -1, -2, device=words.device)
+    codes = (words[..., :, None] >> shifts) & 3
+    return codes.reshape(*words.shape[:-1], words.shape[-1] * 16)[..., :k].to(torch.uint8)
+
+
 def kmer_windows(packed: torch.Tensor, k: int, n_pos: int) -> torch.Tensor:
     """Packed kmer words of every window (kmer_engine.py:80-119).
 

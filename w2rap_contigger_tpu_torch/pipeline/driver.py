@@ -22,7 +22,7 @@ import time
 
 from ..core.io_fastq import extract_reads
 from ..core.reads import ReadSet
-from ..device import resolve_device, timed
+from ..device import ASSEMBLY, resolve_device, timed
 from ..graph import gfa, lines as lines_mod
 from ..graph.hbv import HyperBasevector
 from ..parallel import mesh as pmesh
@@ -238,4 +238,6 @@ def run_pipeline(
         rep = sysinfo.timelog_report()
         if rep:
             print(rep)
+        # the unitig chains of the whole run, and those the host finished
+        print("UNITIGS, " + ", ".join(f"{name} {n}" for name, n in ASSEMBLY.items()))
     return hbv, paths, d
