@@ -1533,15 +1533,6 @@ def _split() -> dict:
     return split
 
 
-def timelog_calls(span: str) -> int:
-    """How many times the timelog saw `span` since its last reset."""
-    for line in sysinfo.timelog_report().splitlines():
-        _, name, _, calls = [x.strip() for x in line.split(",")]
-        if name == span:
-            return int(calls.split()[0])
-    return 0
-
-
 class CountPeak:
     """Wraps step 2's count for one run: the peak device memory inside it
     (the peak statistics reset as it starts) and its wall."""
@@ -1626,11 +1617,12 @@ def phase_batched(data: str, launches: dict, count_peak: int):
         fail(f"E. coli -d 4 -m 4: the count's peak device memory {count.peak} is not "
              f"within 4 GiB and below the unbatched {count_peak}")
     split = _split()
-    R = timelog_calls("step2.count.sort")
+    R = tdev.RANGED["ranges"]
     if R < 4 or (got["collapse"] != R * launches["collapse"]
             or got["kmerize"] != (R + 1) * launches["kmerize"]):
         fail(f"E. coli -d 4: {R} ranges, launches {got} against unbatched {launches}")
-    say("ecoli_batched", disk_batches=4, max_mem_gb=4, ranges=R, wall_s=f"{wall:.2f}",
+    say("ecoli_batched", disk_batches=4, max_mem_gb=4, ranges=R,
+        range_rows_max=tdev.RANGED["range_rows_max"], wall_s=f"{wall:.2f}",
         count_s=f"{count.seconds:.3f}", count_max_memory_allocated=count.peak,
         unbatched_count_max_memory_allocated=count_peak,
         kmerize=got["kmerize"], collapse=got["collapse"],

@@ -103,8 +103,8 @@ def _assert_dict(d, hist, jd, jhist):
 
 # case -> (-d, -m, W2RAP_SORT, ranges): -m 0 forces 256 ranges; at -m 2
 # MiB the JAX package's rule takes 2 ranges (2.5 MB estimated), but the
-# first of them holds 31k rows (2.5 MB at count_row_bytes), so the port
-# takes 4, whose largest (18k rows) fits
+# first of them holds 31k rows (3.3 MB at range_row_bytes), so the port
+# takes 4, whose largest (18k rows, 1.9 MB) fits
 BATCH_CASES = {"d2": (2, 10000, "lax", 2), "d4": (4, 10000, "lax", 4),
                "d8": (8, 10000, "lax", 8), "m0": (0, 0, "lax", 256),
                "m_ceiling": (0, 2.0 ** -9, "lax", 4),

@@ -29,6 +29,11 @@ LAUNCHES: dict[str, int] = {
 # whose head is its mirror's head) and nodes of smooth cycles it walked
 ASSEMBLY: dict[str, int] = {"chains": 0, "host_tie_chains": 0, "host_cycle_nodes": 0}
 
+# ops.kmer_engine.count_kmers_batched's range path since the last reset:
+# counts that took it, hash ranges counted, the valid rows of the largest
+# range, and the valid rows of all ranges
+RANGED: dict[str, int] = {"counts": 0, "ranges": 0, "range_rows_max": 0, "range_rows": 0}
+
 # the sharded paths' host waits for device data since the last reset
 # (wait_host), and the last of their enqueues and waits in order:
 # ("enqueue", "<stage>:<shard>") or ("wait", "<what was read>")
@@ -37,7 +42,7 @@ EVENTS: deque = deque(maxlen=4096)
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ASSEMBLY):
+    for counts in (LAUNCHES, ASSEMBLY, RANGED):
         for name in counts:
             counts[name] = 0
 

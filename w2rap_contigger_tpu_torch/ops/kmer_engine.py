@@ -54,7 +54,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..device import note, resolve_device, timed, to_host, wait_host
+from ..device import RANGED, note, resolve_device, timed, to_host, wait_host
 from ..parallel.mesh import bucket_of, on, shard_chunk
 from . import bitkmer as bk
 from . import bitonic
@@ -610,12 +610,25 @@ MAX_RANGE_BITS = 8  # at most 256 hash ranges, as the JAX package's rule
 
 
 def count_row_bytes(W: int) -> int:
-    """Device bytes a stream row costs step 2's count at its peak: the
-    stream and about three copies of it (the sort's keys, its output, the
+    """Device bytes a window costs step 2's unbatched count at its peak:
+    the stream and about three copies of it (the sort's keys, its output, the
     gathered planes).  Measured: 77 B a window at W = 4, the unbatched
     count's peak over its windows at E. coli scale and 16 Mbp (NVIDIA H100
     80GB HBM3, lax sort; radix within 2%, pallas below)."""
     return 16 * (W + 1)
+
+
+def range_row_bytes(W: int) -> int:
+    """Device bytes a valid row of a hash range costs the range path's
+    count at its peak, in the lax sort's passes: the range's stream holds
+    only its rows, so the peak is the largest range's rows at this rate
+    beside the packed reads.  Measured: 101.0 B a row at W = 4, (peak -
+    packed reads) over the largest range, alike on E. coli at -d 2 (114.9M
+    rows) and A. fumigatus Af293 at -m 72 (728.1M rows; NVIDIA H100 80GB
+    HBM3, lax sort).  count_row_bytes' 80 B prices a window of the
+    unbatched stream, invalid windows included, and would let a range's
+    count pass max_mem_gb by a quarter."""
+    return 21 * (W + 1)
 
 
 def range_sizes(chunks, k: int, L: int) -> list[int]:
@@ -672,7 +685,7 @@ def count_kmers_batched(bases, lengths, quals, k: int, min_qual: int = 7,
     The number of ranges starts from the JAX package's rule (equal shares
     of its working-set estimate), then doubles until the largest range,
     as the sizing pass counted it, fits max_mem_gb beside the packed
-    reads (count_row_bytes), up to 256 ranges.  --tmp_dir bounds no
+    reads (range_row_bytes), up to 256 ranges.  --tmp_dir bounds no
     device peak: the ranges' dictionaries are small next to a range's
     stream, and the reload puts them all back on the device."""
     W = bk.nwords(k)
@@ -683,23 +696,26 @@ def count_kmers_batched(bases, lengths, quals, k: int, min_qual: int = 7,
     while n_batches < 1 << MAX_RANGE_BITS and bytes_needed / n_batches > budget:
         n_batches *= 2
     range_bits = max(0, int(n_batches - 1).bit_length())
-    row_bytes = count_row_bytes(W)
     dev = resolve_device(device)
-    span = "step2.count"
     n, L = bases.shape
-    if L < k or n == 0 or (range_bits == 0 and n_rows * row_bytes <= budget):
+    if L < k or n == 0 or (range_bits == 0 and n_rows * count_row_bytes(W) <= budget):
         return count_kmers_device(
             bases, lengths, quals, k, min_qual=min_qual, min_freq=min_freq,
             chunk_reads=chunk_reads, device=dev,
         )
+    span = "step2.count.range"
     with timed(f"{span}.pack", dev):
         chunks = list(_device_chunks(bases, lengths, quals, k, min_qual,
                                      chunk_reads, dev))
-    with timed(f"{span}.range_sizes", dev):
+    with timed(f"{span}.sizes", dev):
         fine = range_sizes(chunks, k, L)
     room = budget - sum(pr.nbytes + gl.nbytes for pr, gl in chunks)
-    range_bits = ceiling_range_bits(fine, range_bits, room, row_bytes)
+    range_bits = ceiling_range_bits(fine, range_bits, room, range_row_bytes(W))
     sizes = ranges_at(fine, range_bits)
+    RANGED["counts"] += 1
+    RANGED["ranges"] += len(sizes)
+    RANGED["range_rows_max"] = max(RANGED["range_rows_max"], max(sizes))
+    RANGED["range_rows"] += sum(sizes)
     hist = np.zeros(101, dtype=np.int64)
     parts = []
     for ri, size in enumerate(sizes):

@@ -22,7 +22,7 @@ import time
 
 from ..core.io_fastq import extract_reads
 from ..core.reads import ReadSet
-from ..device import ASSEMBLY, resolve_device, timed
+from ..device import ASSEMBLY, RANGED, resolve_device, timed
 from ..graph import gfa, lines as lines_mod
 from ..graph.hbv import HyperBasevector
 from ..parallel import mesh as pmesh
@@ -240,4 +240,6 @@ def run_pipeline(
             print(rep)
         # the unitig chains of the whole run, and those the host finished
         print("UNITIGS, " + ", ".join(f"{name} {n}" for name, n in ASSEMBLY.items()))
+        # the step-2 counts that ran in hash ranges (-d, -m)
+        print("RANGED, " + ", ".join(f"{name} {n}" for name, n in RANGED.items()))
     return hbv, paths, d
