@@ -10,7 +10,8 @@ exits non-zero and prints no result line:
    of step 5's blob-local graphs (native/{count,graph,path}_kernel.cc)
    with g++;
 3. each kernel against its plain PyTorch version, element by element, on
-   the card at the main path's shapes (K1 kmerize on one 65536-read chunk
+   the card at the main path's shapes (K0 pack on one 65536-read chunk of
+   raw reads, against the host pack too, timed; K1 kmerize on one chunk
    at k=60 and k=200, L=250, timed over 50 launches into one output, and
    on small ragged inputs at k = 31, 272, 320 and 640, with its registers
    and spills at W = 4, 13, 17, 40; K2 collapse on sorted W=4 and W=13 streams
@@ -88,16 +89,16 @@ exits non-zero and prints no result line:
    different from the card's run without --fill_join; the edge counts,
    seconds and the fill_gaps / join_overlaps spans printed;
 5. step 2 at E. coli scale (4.6 Mbp, 550k PE250 pairs, seed 42) on the
-   card with W2RAP_TIMELOG=1: both kernels launched, graph and paths
+   card with W2RAP_TIMELOG=1: K0, K1 and K2 launched, graph and paths
    validated, step split, the count's and the run's peak device memory
    printed;
 5b. the same with -d 4 -m 4 --tmp_dir (at least 4 hash ranges, as many
    as the 4 GiB ceiling needs, each spilled): small_K.freqs and the
    small_K checkpoints identical to phase 5's, the spill directory empty
    afterwards, the count's peak device memory within 4 GiB and below
-   phase 5's, K2 launched R times phase 5's and K1 R + 1 times (the
+   phase 5's, K2 launched R times phase 5's, K1 R + 1 times (the
    ranges' sizing pass and one pass a range; R the sorts the count's
-   timelog records); both peaks, the count's split and the launches
+   timelog records) and K0 as often (the reads are packed once); both peaks, the count's split and the launches
    printed;
 6. steps 1-4 at E. coli scale with K=260 on the card, three times:
    W2RAP_SORT=lax, radix, then pallas.  The checkpoints of the three runs
@@ -149,6 +150,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -378,6 +380,77 @@ def k1_inputs(k: int, n: int = CHUNK_READS, L: int = READ_LEN, ragged: bool = Fa
         bases, lengths, quals = _reads(rng, n, L)
     pr, glen = kkm.pack_and_glen_host(bases, quals, lengths, k, 7)
     return torch.from_numpy(pr.view(np.int32)).to(DEV), torch.from_numpy(glen).to(DEV)
+
+
+PACK_REPS = 200  # K0 launches timed between two CUDA events
+PACK_ROTATE = 4  # chunks the timed launches take in turn: 131 MB, past the 50 MB L2
+HOLD_CYCLES = 40_000_000  # about 20 ms of the card's clock: the host enqueues meanwhile
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps launches, after reps warm-up
+    launches, enqueued behind a sleep on the card: a kernel shorter than
+    the host's time to launch it is timed back to back, not at the pace
+    of the host."""
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def pack_c(lib, raw, packed, glen, k: int) -> None:
+    """One launch of K0 into packed and glen through its C entry (not the
+    wrapper, whose allocations and checks would outlast the kernel: not
+    counted)."""
+    n, L = raw[0].shape
+    _build.check(lib.w2rap_pack(
+        raw[0].data_ptr(), raw[1].data_ptr(), raw[2].data_ptr(), n, L, packed.shape[1], k, 7,
+        packed.data_ptr(), glen.data_ptr(), torch.cuda.current_stream().cuda_stream),
+        "w2rap_pack")
+
+
+def check_pack():
+    """K0 (csrc/pack.cu) on one step-2 chunk of raw reads at k=60: bit for
+    bit its plain version's and the host pack's, timed over PACK_REPS
+    launches against its bound (codes and qualities read, packed rows and
+    glen written).  The launches take PACK_ROTATE copies of the chunk in
+    turn, each into an output of its own, so that every launch reads its
+    chunk from HBM and not from L2, as a chunk just uploaded is read, and
+    are queued back to back (queued_ms)."""
+    bases, lengths, quals = _reads(np.random.default_rng(SEED), CHUNK_READS, READ_LEN)
+    raw = [torch.from_numpy(a).to(DEV) for a in (bases, quals, lengths)]
+    got = kkm.pack_glen(*raw, 60, 7)
+    want = kkm.pack_glen_plain(*raw, 60, 7)
+    host = kkm.pack_and_glen_host(bases, quals, lengths, 60, 7)
+    if not (all(torch.equal(g, w) for g, w in zip(got, want))
+            and np.array_equal(got[0].cpu().numpy(), host[0].view(np.int32))
+            and np.array_equal(got[1].cpu().numpy(), host[1])):
+        fail("K0 pack differs from its plain version or the host pack")
+    lib = _build.library()
+    raws = [raw] + [[t.clone() for t in raw] for _ in range(PACK_ROTATE - 1)]
+    outs = [[torch.empty_like(t) for t in got] for _ in raws]
+    turn = itertools.count()
+
+    def launch():
+        i = next(turn) % PACK_ROTATE
+        pack_c(lib, raws[i], *outs[i], 60)
+
+    ms = queued_ms(launch, PACK_REPS)
+    if not all(torch.equal(o, w) for out in outs for o, w in zip(out, want)):
+        fail("K0 pack: the timed launches differ from the plain version")
+    plain_ms = time_ms(lambda: kkm.pack_glen_plain(*raw, 60, 7))
+    b, by = bound_ms(bases.size * 2 + bases.size // 4 + 4 * CHUNK_READS)
+    say("pack", reads=CHUNK_READS, L=READ_LEN, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+        bound_ms=f"{b:.4f}", bound_by=by, share=f"{b / ms:.3f}", reps=PACK_REPS,
+        rotate=PACK_ROTATE, **kkm.pack_attrs())
 
 
 def check_kmerize(k: int):
@@ -1572,7 +1645,7 @@ def phase_scale(data: str) -> tuple[dict, int]:
     wall = time.time() - t0
     launches = dict(tdev.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    for name in ("kmerize", "collapse"):
+    for name in ("pack", "kmerize", "collapse"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     validate.test_involution(hbv)
@@ -1594,8 +1667,9 @@ def phase_batched(data: str, launches: dict, count_peak: int):
     or more, each spilled) against phase 5's unbatched run: small_K.freqs
     and the small_K checkpoints identical, the spill files gone, the
     count's peak device memory within the 4 GiB ceiling and below the
-    unbatched one's, K2 launched once a range and K1 once a range plus
-    the pass that sizes the ranges."""
+    unbatched one's, K2 launched once a range, K1 once a range plus the
+    pass that sizes the ranges, and K0 as often as unbatched (the reads
+    are packed once)."""
     os.environ["W2RAP_TIMELOG"] = "1"
     sysinfo.timelog_reset()
     tdev.reset_launches()
@@ -1619,15 +1693,16 @@ def phase_batched(data: str, launches: dict, count_peak: int):
     split = _split()
     R = tdev.RANGED["ranges"]
     if R < 4 or (got["collapse"] != R * launches["collapse"]
-            or got["kmerize"] != (R + 1) * launches["kmerize"]):
+            or got["kmerize"] != (R + 1) * launches["kmerize"]
+            or got["pack"] != launches["pack"]):
         fail(f"E. coli -d 4: {R} ranges, launches {got} against unbatched {launches}")
     say("ecoli_batched", disk_batches=4, max_mem_gb=4, ranges=R,
         range_rows_max=tdev.RANGED["range_rows_max"], wall_s=f"{wall:.2f}",
         count_s=f"{count.seconds:.3f}", count_max_memory_allocated=count.peak,
         unbatched_count_max_memory_allocated=count_peak,
-        kmerize=got["kmerize"], collapse=got["collapse"],
-        unbatched_kmerize=launches["kmerize"], unbatched_collapse=launches["collapse"],
-        spill_left=len(left), identical=True)
+        pack=got["pack"], kmerize=got["kmerize"], collapse=got["collapse"],
+        unbatched_pack=launches["pack"], unbatched_kmerize=launches["kmerize"],
+        unbatched_collapse=launches["collapse"], spill_left=len(left), identical=True)
     say("ecoli_batched_split", **{k: v for k, v in split.items()
                                   if k.startswith("step2.count")})
 
@@ -2034,6 +2109,7 @@ def main():
     card = phase_probe()
     phase_build()
     t0 = time.time()
+    check_pack()
     k1 = check_kmerize(60)
     check_kmerize(200)
     check_kmerize_small()

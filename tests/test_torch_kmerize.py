@@ -1,7 +1,9 @@
 """K1 kmerize: the port's plain version against the JAX package's Pallas
 kernel in interpret mode (k = 60, 200) and its XLA `kmerize_chunk`
 (k = 320, 640: W = 20 and 40, beyond the Pallas tests' reach), and the
-CUDA kernel against the plain version.
+CUDA kernel against the plain version.  K0's plain version against the
+host pack (`pack_and_glen_host`), the port's and the JAX package's; K0's
+kernel is tested on the card in tests/test_torch_pack.py.
 
 Row orders differ by design (the port emits row r*P + p, the TPU kernel a
 position permutation), so rows are compared as sorted multisets of
@@ -15,10 +17,12 @@ import jax.numpy as jnp
 
 from w2rap_contigger_tpu.ops import bitkmer as hbk
 from w2rap_contigger_tpu.ops import kmer_engine as hke
+from w2rap_contigger_tpu import native as hnative
 from w2rap_contigger_tpu.ops import pallas_kmer as pk
 from w2rap_contigger_tpu_torch import device as tdev
 from w2rap_contigger_tpu_torch.ops import kmerize as kkm
 from _torch_guards import time_limited  # noqa: F401
+import _pack_cases as pc
 
 
 def _reads(rng, n, L):
@@ -93,6 +97,33 @@ def test_pack_host_matches_numpy(rng):
     pr, glen = kkm.pack_and_glen_host(bases, quals, lengths, 60, 7)
     np.testing.assert_array_equal(pr, kkm.pack_rows_host(bases))
     np.testing.assert_array_equal(glen, kkm.good_lengths_host(quals, lengths, 60, 7))
+
+
+@pytest.mark.parametrize("route", ["native", "numpy", "jax_native", "jax_numpy"])
+@pytest.mark.parametrize("case", pc.CASE_IDS)
+def test_pack_glen_plain_matches_host(case, route, monkeypatch):
+    """K0's plain version against pack_and_glen_host on its C++ route and
+    on its numpy route (no toolchain), the port's and the JAX package's:
+    the cases of tests/_pack_cases.py.  The JAX package's numpy route does
+    not mask the codes with & 3, so on that route the cases' codes are
+    masked first, for both sides."""
+    bases, quals, lengths, k, mq = pc.case(case)
+    host, libs = ((pk.pack_and_glen_host, hnative) if route.startswith("jax_")
+                  else (kkm.pack_and_glen_host, kkm.native))
+    if route.endswith("numpy"):
+        monkeypatch.setattr(libs, "load", lambda *args, **kwargs: None)
+    else:
+        assert libs.load("w2rappack", ["pack_kernel.cc"]) is not None
+    if route == "jax_numpy":
+        bases = bases & np.uint8(3)
+    pr, glen = host(bases, quals, lengths, k, mq)
+    got_pr, got_glen = kkm.pack_glen_plain(
+        *map(torch.from_numpy, (bases, quals, lengths)), k, mq)
+    np.testing.assert_array_equal(got_pr.numpy(), pr.view(np.int32))
+    np.testing.assert_array_equal(got_glen.numpy(), glen)
+    L = bases.shape[1]
+    if len(glen) and L >= k:
+        assert (glen == 0).any() and (glen > 0).any()
 
 
 def test_kmerize_checks_inputs():

@@ -21,11 +21,12 @@ takes the median.
 
 Why the qualities are not salted, as bench.py salts them: XLA may hoist
 or reuse a loop-invariant program, and eager PyTorch does neither.  In
-the port the qualities enter on the host (pack_and_glen_host folds them
-into the usable lengths before K1), so a salt would time a host re-pack,
-not a kernel.  Instead every chain must return a dictionary of the same
-size, and the first chain's words, counts and ctx must equal those of
-count_kmers_device on the same input.
+the port the qualities enter before the chain (K0 on a card, the host's
+pack_and_glen_host on the CPU, fold them into the usable lengths before
+K1), so a salt would time a re-pack, not the chain.  Instead every
+chain must return a dictionary of the same size, and the first chain's
+words, counts and ctx must equal those of count_kmers_device on the
+same input.
 
 Baseline: BASELINE_KMERS_PER_SEC = 8.4e7, from the reference (-O2; its
 -Ofast miscompiles under gcc 13) measured on a 2-core box: 240k PE250
@@ -37,10 +38,11 @@ core scaling.  The reference's shared-nothing OMP task tree
 per-core rate x 32 cores = 8.4e7 kmers/s is the denominator (the E. coli
 rate would give 7.4e7: vs_baseline is conservative by about 14%).
 
-detail: the end-to-end count_kmers_device (host pack, upload, chain;
+detail: the end-to-end count_kmers_device (upload, K0 pack, chain;
 the dictionary stays on the card, so nothing is downloaded but the
 101-bin histogram) cold (its first call in the process, after the
-chains) and warm; the host pack alone; pinned host-to-device and
+chains) and warm; the host pack alone (pack_and_glen_host, which the
+CPU takes); pinned host-to-device and
 device-to-host copy rates (8 MiB and 16 MiB); the chain's peak device
 memory; each kernel's launches in one chain; the radix recounts (an
 exact lax recount after a slot overflow or a collision; 0 expected);

@@ -40,6 +40,8 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 # C entry points: name -> argtypes; each returns cudaGetLastError()
 _SIGNATURES = {
+    "w2rap_pack": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P, _P, _P],
+    "w2rap_pack_attrs": [_P],
     "w2rap_kmerize": [_P, _I64, _I64, _P, _I32, _I32, _P, _I64, _P],
     "w2rap_kmerize_attrs": [_I32, _P],
     "w2rap_collapse": [_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P],

@@ -6,7 +6,8 @@ steps 2 and 3), and of the step-2 entry count_kmers_batched (:1433).
 The chain, per the reference's createDictOMPRecursive
 (src/paths/long/BuildReadQGraph.cc:1015-1110):
 
-  reads --host pack (C++)--> packed rows + usable lengths, per chunk
+  reads --K0 pack on a card (the host's C++ pass on the CPU)--> packed
+          rows + usable lengths, per chunk
         --K1 kmerize--> canonical word planes + context plane
   (step 3: place sequences --torch kmerize_flat--> the same planes)
         --the stream: W word planes, ctx riding in the last word's pad
@@ -23,8 +24,8 @@ The chain, per the reference's createDictOMPRecursive
         --global compaction (torch gather, _compact_planes_dev :1293)-->
         sorted dictionary + 101-bin histogram (low bins from K2, :1399)
 
-Range batching (`count_kmers_batched`, -d / -m): the reads are packed
-and uploaded once, one K1 pass counts the rows of each hash range (the
+Range batching (`count_kmers_batched`, -d / -m): the reads are uploaded
+and packed once, one K1 pass counts the rows of each hash range (the
 top bits of word 0), and each range is a pass of its own: K1 again, a
 stream of only that range's rows, the sort and K2, each on the device.
 The ranges' dictionaries, spilled to --tmp_dir or kept, concatenate in
@@ -61,7 +62,7 @@ from . import bitonic
 from . import context as kctx
 from . import radix
 from .collapse import LOW_BINS, TILE, collapse
-from .kmerize import kmerize, pack_and_glen_host, pack_rows_host
+from .kmerize import kmerize, pack_and_glen_host, pack_glen, pack_rows_host
 
 
 class KmerDict:
@@ -547,17 +548,42 @@ def _round_robin(gens):
 def _device_chunks(bases, lengths, quals, k: int, min_qual: int,
                    chunk_reads: int, dev, stream=None):
     """Yield (packed rows, usable lengths) of each chunk of reads on
-    `dev`, packed and uploaded ahead on a worker thread (_prefetched)."""
+    `dev`.  On a card a worker thread uploads each chunk's raw codes,
+    qualities and lengths ahead (_prefetched), and K0 (pack_glen) packs
+    them on `stream` (default: the current stream) once the copy ends; the
+    raw chunk is then dropped.  On the CPU the worker packs on the host
+    (pack_and_glen_host)."""
     n = bases.shape[0]
+    dev = torch.device(dev)
+    starts = range(0, n, chunk_reads)
+    if dev.type != "cuda":
+        def host_chunk(start):
+            stop = min(start + chunk_reads, n)
+            pr, glen = pack_and_glen_host(
+                bases[start:stop], quals[start:stop], lengths[start:stop], k, min_qual
+            )
+            return pr.view(np.int32), glen
 
-    def host_chunk(start):
+        return _prefetched(host_chunk, starts, dev, stream)
+
+    def raw_chunk(start):
         stop = min(start + chunk_reads, n)
-        pr, glen = pack_and_glen_host(
-            bases[start:stop], quals[start:stop], lengths[start:stop], k, min_qual
-        )
-        return pr.view(np.int32), glen
+        return (bases[start:stop], quals[start:stop],
+                np.asarray(lengths[start:stop], dtype=np.int32))
 
-    return _prefetched(host_chunk, range(0, n, chunk_reads), dev, stream)
+    if stream is None:
+        stream = torch.cuda.current_stream(dev)
+    return _packed_on_card(_prefetched(raw_chunk, starts, dev, stream), k, min_qual,
+                           dev, stream)
+
+
+def _packed_on_card(raw_chunks, k: int, min_qual: int, dev, stream):
+    """K0 on `stream` over each uploaded raw chunk: (packed rows, glen)."""
+    for raw in raw_chunks:
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            out = pack_glen(*raw, k, min_qual)
+        del raw
+        yield out
 
 
 def _count_chunks(chunks, capacity: int, k: int, L: int, min_freq: int, dev,
@@ -675,10 +701,11 @@ def count_kmers_batched(bases, lengths, quals, k: int, min_qual: int = 7,
     is their concatenation, bit for bit the unbatched one (the reference's
     createDictOMPDiskBased, BuildReadQGraph.cc:1120-1250).
 
-    Every pass runs K1, the sort and K2 on `device`.  The reads are packed
-    and uploaded once (a few bytes a base); one K1 pass counts each
-    range's rows, and each range's stream holds only its rows, so the
-    sort's footprint shrinks with the range.  (The JAX package cannot drop
+    Every pass runs K1, the sort and K2 on `device`.  The reads are
+    uploaded and packed once, and only their packed rows are kept (a
+    quarter of a byte a base); one K1 pass counts each range's rows, and
+    each range's stream holds only its rows, so the sort's footprint
+    shrinks with the range.  (The JAX package cannot drop
     out-of-range rows before its device sort, kmer_engine.py:1489-1507,
     and takes its native host spill instead, :1471-1487.)
 
@@ -855,14 +882,14 @@ def count_kmers_sharded(bases, lengths, quals, k: int, mesh, min_qual: int = 7,
     mesh.py:76-167): (KmerDict on mesh.devices[0], hist), bit for bit
     count_kmers_device's.
 
-    The reads split into mesh.size contiguous shards; each shard packs
-    its reads on a worker thread of its own and uploads them once, while
-    K1 runs on the chunks that came before (the chunks are taken from
-    the shards in turn); every valid row goes to the stream of the shard
-    that owns its `bucket_of` hash, and each owner runs the sort back end
-    and K2 on what it owns.  K1 runs twice a chunk (the sizing pass, then
-    the exchange); the packed chunks stay on their devices between the
-    two.  `stats`: _count_exchanged's."""
+    The reads split into mesh.size contiguous shards; each shard uploads
+    its reads once on a worker thread of its own and packs them on its
+    device (_device_chunks), while K1 runs on the chunks that came before
+    (the chunks are taken from the shards in turn); every valid row goes
+    to the stream of the shard that owns its `bucket_of` hash, and each
+    owner runs the sort back end and K2 on what it owns.  K1 runs twice a
+    chunk (the sizing pass, then the exchange); the packed chunks stay on
+    their devices between the two.  `stats`: _count_exchanged's."""
     dev0 = mesh.devices[0]
     n, L = bases.shape
     if L < k or n == 0:

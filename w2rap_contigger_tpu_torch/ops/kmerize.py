@@ -1,11 +1,17 @@
-"""K1: kmerize + canonicalize 2-bit packed reads.
+"""K0: 2-bit pack + usable lengths of raw reads; K1: kmerize + canonicalize
+the packed reads.
+
+`pack_glen` is the wrapper of the CUDA kernel csrc/pack.cu, which
+computes on the card what `pack_and_glen_host` computes on the host;
+`pack_glen_plain` is the same function in plain PyTorch, and the
+wrapper takes it only for tensors on the CPU.
 
 `kmerize` is the wrapper of the CUDA kernel csrc/kmerize.cu, which
 replaces the TPU kernel w2rap_contigger_tpu/ops/pallas_kmer.py:
 _kmerize_kernel (:64).  `kmerize_plain` is the same function in plain
 PyTorch; the wrapper takes it only for tensors on the CPU.
 
-Both return (W+1, N*P) int32 planes of raw u32 bits, row r*P + p for
+K1's two return (W+1, N*P) int32 planes of raw u32 bits, row r*P + p for
 read r and window p (P = L-k+1): W canonical word planes (all-ones
 sentinels where the window is invalid) and the KMerContext plane (0
 where invalid).  The row order is the port's own; the JAX kernel emits
@@ -13,7 +19,8 @@ another permutation, so the two are compared as multisets.
 
 The host-side packing (`pack_rows_host`, `good_lengths_host`,
 `pack_and_glen_host`) is copied from pallas_kmer.py:151-216 and uses
-the port's g++ loader for native/pack_kernel.cc.
+the port's g++ loader for native/pack_kernel.cc; without a toolchain its
+numpy route masks the codes with & 3, as the C++ pass and K0 do.
 """
 
 from __future__ import annotations
@@ -70,7 +77,7 @@ def pack_and_glen_host(bases, quals, lengths, k: int, min_qual: int):
     lib = native.load("w2rappack", ["pack_kernel.cc"])
     if lib is None:
         return (
-            pack_rows_host(bases),
+            pack_rows_host(bases & np.uint8(3)),
             good_lengths_host(quals, lengths, k, min_qual),
         )
     packed = np.empty((n, Wr), dtype=np.uint32)
@@ -88,6 +95,71 @@ def pack_and_glen_host(bases, quals, lengths, k: int, min_qual: int):
         packed.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
         glen.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
     )
+    return packed, glen
+
+
+def _check_raw(bases: torch.Tensor, quals: torch.Tensor, lengths: torch.Tensor) -> None:
+    if bases.dtype != torch.uint8 or quals.dtype != torch.uint8 or lengths.dtype != torch.int32:
+        raise TypeError("pack_glen takes uint8 codes and qualities and int32 lengths")
+    if bases.dim() != 2 or quals.shape != bases.shape or lengths.shape != (bases.shape[0],):
+        raise ValueError(f"bad shapes bases {tuple(bases.shape)} quals {tuple(quals.shape)} "
+                         f"lengths {tuple(lengths.shape)}")
+    if not bases.device == quals.device == lengths.device:
+        raise ValueError("bases, quals and lengths on different devices")
+
+
+def pack_glen_plain(bases: torch.Tensor, quals: torch.Tensor, lengths: torch.Tensor,
+                    k: int, min_qual: int):
+    """Plain PyTorch K0 on any device (the CPU tests' path): (n, L) uint8
+    codes and qualities and (n,) int32 lengths -> ((n, ceil(L/16)) int32
+    packed rows of raw u32 bits, (n,) int32 glen), pack_and_glen_host's."""
+    _check_raw(bases, quals, lengths)
+    n, L = bases.shape
+    Wr = (L + 15) // 16
+    dev = bases.device
+    codes = torch.zeros((n, Wr * 16), dtype=torch.int64, device=dev)
+    codes[:, :L] = bases & 3
+    shifts = 30 - 2 * torch.arange(16, device=dev)
+    packed = (codes.view(n, Wr, 16) << shifts).sum(-1)
+    # glen: the end of the rightmost base that ends a run of k good bases
+    pos = torch.arange(L, device=dev)
+    good = (quals.to(torch.int32) >= min_qual) & (pos < lengths[:, None])
+    last_bad = torch.where(good, -1, pos).cummax(1).values
+    ends = torch.where(pos - last_bad >= k, pos + 1, 0)
+    glen = ends.amax(1) if L else torch.zeros(n, dtype=torch.int64, device=dev)
+    return bk.to_raw32(packed).contiguous(), glen.to(torch.int32)
+
+
+def pack_attrs() -> dict:
+    """Registers, spills and static shared memory of K0's kernel."""
+    return _build.kernel_attrs("w2rap_pack_attrs")
+
+
+def pack_glen(bases: torch.Tensor, quals: torch.Tensor, lengths: torch.Tensor,
+              k: int, min_qual: int):
+    """K0 on the tensors' device: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  Returns ((n, ceil(L/16)) int32 packed
+    rows, (n,) int32 glen), bit for bit pack_and_glen_host's."""
+    if bases.device.type == "cpu":
+        return pack_glen_plain(bases, quals, lengths, k, min_qual)
+    _check_raw(bases, quals, lengths)
+    if bases.device.type != "cuda":
+        raise ValueError(f"pack_glen: unsupported device {bases.device}")
+    if not (bases.is_contiguous() and quals.is_contiguous() and lengths.is_contiguous()):
+        raise ValueError("pack_glen takes contiguous tensors")
+    n, L = bases.shape
+    Wr = (L + 15) // 16
+    packed = torch.empty((n, Wr), dtype=torch.int32, device=bases.device)
+    glen = torch.empty(n, dtype=torch.int32, device=bases.device)
+    if n == 0:
+        return packed, glen
+    err = _build.library().w2rap_pack(
+        bases.data_ptr(), quals.data_ptr(), lengths.data_ptr(), n, L, Wr, k, min_qual,
+        packed.data_ptr(), glen.data_ptr(),
+        torch.cuda.current_stream(bases.device).cuda_stream,
+    )
+    _build.check(err, "w2rap_pack")
+    tdev.count_launch("pack")
     return packed, glen
 
 

@@ -22,7 +22,7 @@ import time
 
 from ..core.io_fastq import extract_reads
 from ..core.reads import ReadSet
-from ..device import ASSEMBLY, RANGED, resolve_device, timed
+from ..device import ASSEMBLY, LAUNCHES, RANGED, resolve_device, timed
 from ..graph import gfa, lines as lines_mod
 from ..graph.hbv import HyperBasevector
 from ..parallel import mesh as pmesh
@@ -242,4 +242,6 @@ def run_pipeline(
         print("UNITIGS, " + ", ".join(f"{name} {n}" for name, n in ASSEMBLY.items()))
         # the step-2 counts that ran in hash ranges (-d, -m)
         print("RANGED, " + ", ".join(f"{name} {n}" for name, n in RANGED.items()))
+        # the hand-written kernels' launches of the whole run (pack: K0)
+        print("LAUNCHES, " + ", ".join(f"{name} {n}" for name, n in LAUNCHES.items()))
     return hbv, paths, d
