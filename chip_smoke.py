@@ -6,9 +6,11 @@ Phases, each printing its results on a line of its own; any failure
 exits non-zero and prints no result line:
 
 1. probe the card (torch.cuda, nvidia-smi name and power limit);
-2. build the CUDA kernels from csrc/ with nvcc, and the host C++ leaves
-   of step 5's blob-local graphs (native/{count,graph,path}_kernel.cc)
-   with g++;
+2. build the CUDA kernels from csrc/ with nvcc, and the five host C++
+   libraries of the six native leaves with g++ (native/pack_kernel.cc,
+   native/fastq_loader.cc with zlib, and step 5's blob-local graphs'
+   native/{count,graph,path}_kernel.cc with pthread; path_kernel.cc
+   serves both pathers): `native.load` raises when one does not build;
 3. each kernel against its plain PyTorch version, element by element, on
    the card at the main path's shapes (K0 pack on one 65536-read chunk of
    raw reads, against the host pack too, timed; K1 kmerize on one chunk
@@ -55,15 +57,8 @@ exits non-zero and prints no result line:
    leading int64 key as the library yardstick, K3a's and K3b's launch
    geometry, registers, spills and shared bytes, and the in-place sort's
    peak device memory;
-3d. the port's benchmark (python -m w2rap_contigger_tpu_torch.bench:
-   step 2's count chain, K1 -> sort -> K2 + compaction, on bench.py's
-   131,072 synthetic reads) in a subprocess under W2RAP_SORT=lax, radix,
-   then pallas, each JSON line printed: every back end's chain equal to
-   its count_kmers_device run, the three dictionaries equal, K1
-   launched twice and K2 once a chain, the sort's kernels launched, no
-   radix recount; then ops.align.banded_costs_batch on the card against
-   the same call on the CPU (B = 256, Ls = Lt = 250, bandwidth 16):
-   equal;
+3d. ops.align.banded_costs_batch on the card against the same call on
+   the CPU (B = 256, Ls = Lt = 250, bandwidth 16): equal;
 4. step 2 through the port's CLI entry on a 200 kb genome / 24k PE250
    pairs, --device cuda against --device cpu: small_K.freqs, HBV and
    paths must be identical;
@@ -191,6 +186,8 @@ from w2rap_contigger_tpu_torch.ops import align  # noqa: E402
 
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 from output_hashes import output_hashes, reads_hashes  # noqa: E402
+from benchmark.roofline import (HBM_BYTES_PER_S, INT_OPS_PER_S, bound_s,  # noqa: E402
+                                k1_bytes, k2_bytes)
 
 DEV = "cuda"
 SEED = 42
@@ -205,13 +202,14 @@ REPEAT = {"glen": 500_000, "pairs": 60_000, "seed": 7,
 FILL_JOIN = {"glen": 200_000, "pairs": 10_000, "seed": 11}
 ECOLI_GAPS = {"glen": 4_600_000, "pairs": 550_000, "seed": 7,
               "extra": ("--repeats", "12", "--repeat_len", "3000", "--dips", "8")}
-NATIVE_LEAVES = (("w2rapcount", "count_kernel.cc"), ("w2rapgraph", "graph_kernel.cc"),
-                 ("w2rappath", "path_kernel.cc"))
+# (module, source, libraries): the six leaves, as their callers load them
+NATIVE_LEAVES = (("w2rappack", "pack_kernel.cc", ()), ("w2rapio", "fastq_loader.cc", ("z",)),
+                 ("w2rapcount", "count_kernel.cc", ("pthread",)),
+                 ("w2rapgraph", "graph_kernel.cc", ("pthread",)),
+                 ("w2rappath", "path_kernel.cc", ("pthread",)))
 STEP2_ROWS = 1_100_000 * (READ_LEN - 60 + 1)  # E. coli k=60 kmer rows
 COLLAPSE_ROWS = 16_000_000  # the W=13 and W=17 K2 checks
 OVERFLOW_ROWS = 64 * 8192
-HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 67e12
 K4 = ("radix_tile_sort", "radix_partition", "radix_region_sort", "radix_merge_pass")
 K4_REPLACES = {
     "radix_tile_sort": "w2rap_contigger_tpu/ops/pallas_radix.py:152",
@@ -279,10 +277,9 @@ def once_ms(fn):
 
 
 def bound_ms(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
-    """Least time for the work: bytes over the memory rate or operations
-    over the integer rate, whichever is larger."""
-    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / INT_OPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+    """benchmark/roofline.py's bound in ms, and what sets it."""
+    by = "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / INT_OPS_PER_S else "operations"
+    return bound_s(n_bytes, n_ops) * 1e3, by
 
 
 def max_abs_err(a, b) -> int:
@@ -331,9 +328,11 @@ def phase_build():
     say("build", seconds=f"{time.time() - t0:.2f}",
         nvcc_seconds=_build.BUILD_SECONDS, sources=len(_build.sources()))
     t0 = time.time()
-    for name, src in NATIVE_LEAVES:
-        if native.load(name, [src], libs=["pthread"]) is None:
-            fail(f"the host leaf native/{src} did not build")
+    for name, src, libs in NATIVE_LEAVES:
+        try:
+            native.load(name, [src], libs=libs)
+        except RuntimeError as e:
+            fail(str(e))
     say("build_native", seconds=f"{time.time() - t0:.2f}", leaves=len(NATIVE_LEAVES))
 
 
@@ -470,7 +469,7 @@ def check_kmerize(k: int):
     plain_ms = time_ms(lambda: kkm.kmerize_plain(pr_d, gl_d, k, READ_LEN))
     valid = int((got[0] != -1).sum())
     # the output write is the bound: W+1 planes, against the packed rows
-    b, by = bound_ms(got.numel() * 4 + pr_d.numel() * 4 + gl_d.numel() * 4)
+    b, by = bound_ms(k1_bytes(CHUNK_READS, READ_LEN, k))
     res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
            "bound_by": by, "library_ms": None}
     attrs = kkm.kmerize_attrs(bk.nwords(k))
@@ -571,7 +570,7 @@ def check_collapse(W: int, n: int, min_count: int, regions: int = 0,
     kept = int(got[1].sum())
     # the input read + every output row written (kept rows and fill) +
     # the tile counts
-    b, by = bound_ms(2 * planes.numel() * 4 + got[1].numel() * 4)
+    b, by = bound_ms(k2_bytes(n, 16 * W))
     res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
            "bound_by": by, "library_ms": None}
     say("collapse", W=W, rows=n, regions=regions, min_count=min_count,
@@ -1007,43 +1006,8 @@ def check_bitonic(label: str, planes: torch.Tensor, num_keys: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3d: the port's benchmark under each sort; banded_costs_batch
+# phase 3d: banded_costs_batch
 # ---------------------------------------------------------------------------
-
-BENCH_SORT_KERNELS = {"lax": (), "radix": K4, "pallas": K3}
-BENCH_CHUNKS = 2  # bench.py's 131,072 reads in chunks of CHUNK_READS
-
-
-def phase_bench():
-    """python -m w2rap_contigger_tpu_torch.bench once per sort back end,
-    each in its own process."""
-    lines = {}
-    for sort in BENCH_SORT_KERNELS:
-        t0 = time.time()
-        res = subprocess.run([sys.executable, "-m", "w2rap_contigger_tpu_torch.bench"],
-                             cwd=REPO, env={**os.environ, "W2RAP_SORT": sort},
-                             capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            fail(f"the bench under {sort} exited {res.returncode}: {res.stderr[-2000:]}")
-        out = res.stdout.strip().splitlines()
-        print(out[-1], flush=True)
-        line = lines[sort] = json.loads(out[-1])
-        detail = line["detail"]
-        launches = detail["launches_per_chain"]
-        if (detail["sort_backend"] != sort or not detail["chain_equals_count_kmers_device"]
-                or detail["radix_recounts"] != 0):
-            fail(f"the bench under {sort}: {detail}")
-        if launches.get("kmerize") != BENCH_CHUNKS or launches.get("collapse") != 1:
-            fail(f"the bench under {sort}: K1 and K2 launches a chain {launches}")
-        if any(launches.get(name, 0) <= 0 for name in BENCH_SORT_KERNELS[sort]):
-            fail(f"the bench under {sort}: a sort kernel was not launched {launches}")
-        say("bench", sort=sort, seconds=f"{time.time() - t0:.1f}", kmers_per_s=line["value"],
-            chain_s=detail["kernel_wall_s"], unique_kmers=detail["unique_kmers"],
-            recounts=detail["radix_recounts"], launches=json.dumps(launches))
-    digests = {sort: line["detail"]["dict_sha256"] for sort, line in lines.items()}
-    if len(set(digests.values())) != 1:
-        fail(f"the bench's dictionaries differ between sort back ends {digests}")
-    say("bench_identical", lax_vs_radix=True, lax_vs_pallas=True)
 
 
 def check_banded_costs():
@@ -2142,9 +2106,8 @@ def main():
     torch.cuda.empty_cache()
     say("phase3c_a", seconds=f"{time.time() - t0:.1f}")
 
-    # 3d: the port's benchmark under each sort, banded_costs_batch
+    # 3d: banded_costs_batch
     t0 = time.time()
-    phase_bench()
     check_banded_costs()
     say("phase3d", seconds=f"{time.time() - t0:.1f}")
 

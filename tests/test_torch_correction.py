@@ -1,9 +1,11 @@
 """Step 5a, the correction stack: the port's trim_reads, fill_pairs and
 correction_suite on the CPU against the JAX package's on the same reads,
 and the host routes that blob-local graphs take (the native count,
-adjacency, unitig and pathing leaves, and the numpy fallbacks of the
-graph and flat-pathing leaves) against the port's torch routes on the
-same dictionary.  Tolerance: exact equality."""
+adjacency, unitig and pathing leaves) against the port's torch routes on
+the same dictionary, and every native leaf's caller raising the build's
+error when its leaf does not build.  Tolerance: exact equality."""
+
+import subprocess
 
 import numpy as np
 import pytest
@@ -13,10 +15,12 @@ from w2rap_contigger_tpu.core.reads import ReadSet
 from w2rap_contigger_tpu.ops import correction as jcorr
 from w2rap_contigger_tpu.paths import fillpairs as jfill
 from w2rap_contigger_tpu_torch import native
+from w2rap_contigger_tpu_torch.core import io_fastq
 from w2rap_contigger_tpu_torch.core.reads import ReadSet as TReadSet
 from w2rap_contigger_tpu_torch.graph import build as gb
 from w2rap_contigger_tpu_torch.ops import correction as tcorr
 from w2rap_contigger_tpu_torch.ops import kmer_engine as ke
+from w2rap_contigger_tpu_torch.ops import kmerize as kkm
 from w2rap_contigger_tpu_torch.ops import precorrect as tpc
 from w2rap_contigger_tpu_torch.paths import fillpairs as tfill
 from w2rap_contigger_tpu_torch.paths import flat_pather, pather
@@ -115,11 +119,10 @@ def _host_graph(flat, seg, k):
 
 
 @pytest.mark.parametrize("k", [60, 200])
-def test_host_routes_match_torch_routes(k, monkeypatch):
+def test_host_routes_match_torch_routes(k):
     """Count, adjacencies, unitigs (with KDef planes), flat pathing and
     read pathing: the host routes on a HostKmerDict equal the torch
-    routes on the CPU dict of the same sequences; so do the numpy
-    fallbacks of the graph and flat-pathing leaves."""
+    routes on the CPU dict of the same sequences."""
     reads = _pairs(np.random.default_rng(k), 1500, 250, 400, 7, err=0.004)
     flat, seg = _flat(reads)
     hd = ke.count_kmers_flat(flat, seg, k, host=True)
@@ -152,34 +155,72 @@ def test_host_routes_match_torch_routes(k, monkeypatch):
     for f in ("offsets", "edges", "start"):
         np.testing.assert_array_equal(getattr(hr, f), getattr(tr, f))
 
-    # the numpy fallbacks of the graph and flat-pathing leaves
-    monkeypatch.setattr(gb, "_native_graph_lib", lambda: None)
-    monkeypatch.setattr(flat_pather, "_native_path_lib", lambda: None)
-    nd, neb, nes = _host_graph(flat, seg, k)
-    np.testing.assert_array_equal(nd.ctx, hd.ctx)
-    np.testing.assert_array_equal(neb, heb)
-    np.testing.assert_array_equal(nes, hes)
-    for plane in ("edge_id", "edge_offset", "edge_rc"):
-        np.testing.assert_array_equal(getattr(nd, plane), getattr(hd, plane))
-    npth = flat_pather.path_flat_sequences(flat, seg, nd, hbv, fx, rx, host=True)
-    for a, b in zip(npth[0], hp[0]):
-        np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(npth[1], hp[1])
-    np.testing.assert_array_equal(npth[2], hp[2])
 
 
-def test_host_routes_refuse_a_device_dict_and_a_missing_leaf(monkeypatch):
-    """The host routes take only host dicts; with no C++ toolchain the
-    blob count and the read pather raise instead of falling back."""
+def test_host_routes_refuse_a_device_dict():
+    """The host routes take only host dicts."""
     reads = _pairs(np.random.default_rng(3), 1200, 100, 250, 9)
     flat, seg = _flat(reads)
     td = ke.count_kmers_flat(flat, seg, 60, device="cpu")
     with pytest.raises(TypeError, match="HostKmerDict"):
         gb.recompute_adjacencies(td, host=True)
+    with pytest.raises(TypeError, match="HostKmerDict"):
+        gb.build_unitigs(td, host=True)
+    with pytest.raises(TypeError, match="HostKmerDict"):
+        flat_pather.path_flat_sequences(flat, seg, td, None, None, None, host=True)
+
+
+@pytest.fixture(scope="module")
+def blob():
+    """A blob-sized graph built through the real leaves: the reads, their
+    flat pool, the host dict and its HBV."""
+    reads = _pairs(np.random.default_rng(3), 1200, 100, 250, 9)
+    flat, seg = _flat(reads)
     hd, eb, es = _host_graph(flat, seg, 60)
     hbv, fx, rx = gb.build_hbv_from_edges(eb, es, 60)
-    monkeypatch.setattr(native, "load", lambda *a, **kw: None)
-    with pytest.raises(RuntimeError, match="count_kernel.cc"):
-        ke.count_kmers_flat(flat, seg, 60, host=True)
-    with pytest.raises(RuntimeError, match="path_kernel.cc"):
-        pather.path_reads(_port(reads), hd, hbv, fx, rx)
+    return reads, flat, seg, hd, (hbv, fx, rx)
+
+
+BUILD_STDERR = b"pack_kernel.cc:1: error: no compiler on this host\n"
+
+
+def _fastq(tmp_path, reads):
+    path = tmp_path / "r.fastq"
+    with open(path, "w") as f:
+        for i in range(reads.n_reads):
+            n = int(reads.lengths[i])
+            f.write(f"@r{i}\n{''.join('ACGT'[c] for c in reads.bases[i, :n])}\n+\n"
+                    f"{''.join(chr(33 + q) for q in reads.quals[i, :n])}\n")
+    return str(path)
+
+
+# the six leaves: their source, and a call of their caller on the blob
+LEAF_CALLS = {
+    "pack": ("pack_kernel.cc", lambda b, tmp: kkm.pack_and_glen_host(
+        b[0].bases, b[0].quals, b[0].lengths, 60, 7)),
+    "fastq": ("fastq_loader.cc", lambda b, tmp: io_fastq.extract_reads(_fastq(tmp, b[0]))),
+    "count": ("count_kernel.cc", lambda b, tmp: ke.count_kmers_flat(b[1], b[2], 60, host=True)),
+    "graph": ("graph_kernel.cc", lambda b, tmp: gb.recompute_adjacencies(b[3], host=True)),
+    "read_path": ("path_kernel.cc", lambda b, tmp: pather.path_reads(_port(b[0]), b[3], *b[4])),
+    "flat_path": ("path_kernel.cc", lambda b, tmp: flat_pather.path_flat_sequences(
+        b[1], b[2], b[3], *b[4], host=True)),
+}
+
+
+@pytest.mark.parametrize("leaf", list(LEAF_CALLS))
+def test_a_leaf_that_does_not_build_raises(leaf, blob, tmp_path, monkeypatch):
+    """With the g++ build failing and no module loaded yet, each leaf's
+    caller raises a RuntimeError that names the leaf's source and carries
+    the compiler's stderr: no leaf has a second implementation."""
+    src, call = LEAF_CALLS[leaf]
+
+    def no_build(name, sources, libs=()):
+        raise subprocess.CalledProcessError(1, ["g++", *sources], output=b"",
+                                            stderr=BUILD_STDERR)
+
+    monkeypatch.setattr(native, "_build", no_build)
+    monkeypatch.setattr(native, "_LIBS", {})
+    with pytest.raises(RuntimeError) as err:
+        call(blob, tmp_path)
+    assert src in str(err.value)
+    assert BUILD_STDERR.decode() in str(err.value)

@@ -250,7 +250,6 @@ def test_host_leaf_graph_matches_torch_at_large_k(k):
 
 def test_host_leaf_refuses_rows_above_its_size():
     lib = tgb._native_graph_lib()
-    assert lib is not None
     W = tgb.NATIVE_MAX_W + 1
     words = np.zeros((4, W), np.uint32)
     ctx = np.zeros(4, np.uint32)

@@ -96,29 +96,34 @@ def test_pack_host_matches_numpy(rng):
     bases, lengths, quals = _reads(rng, 300, 250)
     pr, glen = kkm.pack_and_glen_host(bases, quals, lengths, 60, 7)
     np.testing.assert_array_equal(pr, kkm.pack_rows_host(bases))
-    np.testing.assert_array_equal(glen, kkm.good_lengths_host(quals, lengths, 60, 7))
+    _, plain_glen = kkm.pack_glen_plain(*map(torch.from_numpy, (bases, quals, lengths)), 60, 7)
+    np.testing.assert_array_equal(glen, plain_glen.numpy())
 
 
-@pytest.mark.parametrize("route", ["native", "numpy", "jax_native", "jax_numpy"])
+@pytest.mark.parametrize("route", ["native", "pathing_pack", "jax_native", "jax_numpy"])
 @pytest.mark.parametrize("case", pc.CASE_IDS)
 def test_pack_glen_plain_matches_host(case, route, monkeypatch):
-    """K0's plain version against pack_and_glen_host on its C++ route and
-    on its numpy route (no toolchain), the port's and the JAX package's:
-    the cases of tests/_pack_cases.py.  The JAX package's numpy route does
-    not mask the codes with & 3, so on that route the cases' codes are
-    masked first, for both sides."""
+    """K0's plain version against the host packs on the cases of
+    tests/_pack_cases.py: pack_and_glen_host's C++ route, the port's and
+    the JAX package's; the JAX package's numpy route (no toolchain); and
+    (pathing_pack) the packed rows of pack_rows_host(bases & 3), the pack
+    that the pathing, gapfill, precorrect and the flat count keep.  The
+    JAX package's numpy route does not mask the codes with & 3, so on that
+    route the cases' codes are masked first, for both sides."""
     bases, quals, lengths, k, mq = pc.case(case)
-    host, libs = ((pk.pack_and_glen_host, hnative) if route.startswith("jax_")
-                  else (kkm.pack_and_glen_host, kkm.native))
-    if route.endswith("numpy"):
-        monkeypatch.setattr(libs, "load", lambda *args, **kwargs: None)
-    else:
-        assert libs.load("w2rappack", ["pack_kernel.cc"]) is not None
     if route == "jax_numpy":
+        monkeypatch.setattr(hnative, "load", lambda *args, **kwargs: None)
         bases = bases & np.uint8(3)
-    pr, glen = host(bases, quals, lengths, k, mq)
     got_pr, got_glen = kkm.pack_glen_plain(
         *map(torch.from_numpy, (bases, quals, lengths)), k, mq)
+    if route == "pathing_pack":
+        pr, glen = kkm.pack_rows_host(bases & np.uint8(3)), got_glen.numpy()
+    elif route == "native":
+        pr, glen = kkm.pack_and_glen_host(bases, quals, lengths, k, mq)
+    else:
+        if route == "jax_native":
+            assert hnative.load("w2rappack", ["pack_kernel.cc"]) is not None
+        pr, glen = pk.pack_and_glen_host(bases, quals, lengths, k, mq)
     np.testing.assert_array_equal(got_pr.numpy(), pr.view(np.int32))
     np.testing.assert_array_equal(got_glen.numpy(), glen)
     L = bases.shape[1]

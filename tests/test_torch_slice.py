@@ -97,14 +97,13 @@ def test_port_imports_no_jax():
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "assert 'w2rap_contigger_tpu_torch.graph.gapfill' in names\n"
         "assert 'w2rap_contigger_tpu_torch.parallel.mesh' in names\n"
-        "assert 'w2rap_contigger_tpu_torch.bench' in names\n"
         "assert 'w2rap_contigger_tpu_torch.ops.align' in names\n"
         "print(len(names))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 78
+    assert int(res.stdout.strip()) >= 77
 
 
 # the JAX package's Pallas files -> the port's modules of their kernels

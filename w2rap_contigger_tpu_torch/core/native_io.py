@@ -4,8 +4,7 @@
 the dense (N, Lmax) tensors of :class:`~w2rap_contigger_tpu_torch.core.reads.
 ReadSet` without Python-object intermediates — the native equivalent of
 the reference's streaming read extraction (ExtractReads.cc:45-688).
-Returns None when the native library is unavailable (callers fall back
-to the numpy parser in io_fastq)."""
+The library is required: `native.load` raises when it does not build."""
 
 from __future__ import annotations
 
@@ -23,7 +22,7 @@ _SIG_DONE = False
 def _lib():
     global _SIG_DONE
     lib = native.load("w2rapio", ["fastq_loader.cc"], libs=["z"])
-    if lib is not None and not _SIG_DONE:
+    if not _SIG_DONE:
         u8p = ctypes.POINTER(ctypes.c_uint8)
         u64p = ctypes.POINTER(ctypes.c_uint64)
         lib.w2rap_gunzip.argtypes = [u8p, ctypes.c_uint64, u8p, u64p]
@@ -42,10 +41,6 @@ def _u8ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 
 
-def available() -> bool:
-    return _lib() is not None
-
-
 def gunzip(data: bytes) -> bytes:
     lib = _lib()
     buf = np.frombuffer(data, dtype=np.uint8)
@@ -61,10 +56,8 @@ def gunzip(data: bytes) -> bytes:
     return out[:n.value].tobytes()
 
 
-def load_fastq_readset(path: str) -> ReadSet | None:
+def load_fastq_readset(path: str) -> ReadSet:
     lib = _lib()
-    if lib is None:
-        return None
     with open(path, "rb") as fh:
         raw = fh.read()
     if path.endswith(".gz"):

@@ -25,8 +25,8 @@ no padded-node remap is needed.
 
 A HostKmerDict (step 5's blob-local graphs, `host=True`) takes the host
 routes, copied from build.py:45-228: the C++ leaf native/graph_kernel.cc
-(`w2rap_prune_ctx`, `w2rap_build_links`, `w2rap_list_rank`), or its
-numpy mirror when the leaf does not build.  Blob graphs are a few
+(`w2rap_prune_ctx`, `w2rap_build_links`, `w2rap_list_rank`), which is
+required: `native.load` raises when it does not build.  Blob graphs are a few
 thousand kmers: a device round trip per op would cost more than the work.
 """
 
@@ -82,10 +82,7 @@ def recompute_adjacencies(d, host: bool = False, mesh=None):
         return d
     if host or isinstance(d, HostKmerDict):
         _need_host(d)
-        lib = _native_graph_lib()
-        if lib is not None:
-            return _prune_ctx_native(lib, d)
-        return recompute_adjacencies_host(d)
+        return _prune_ctx_native(_native_graph_lib(), d)
     n_iters = n_iters_for(M)
     if mesh is None:
         devices, slices, tables = [d.device], [(0, M)], [d.table_t()]
@@ -206,8 +203,7 @@ def _need_host(d) -> None:
 
 
 def _native_graph_lib():
-    """C++ adjacency/link/list-rank leaf (native/graph_kernel.cc), or
-    None when it does not build."""
+    """C++ adjacency/link/list-rank leaf (native/graph_kernel.cc)."""
     from .. import native
 
     return native.load("w2rapgraph", ["graph_kernel.cc"], libs=["pthread"])
@@ -294,62 +290,6 @@ def _search_host(table_bytes, query_words):
     return posc.astype(np.int32), found
 
 
-def recompute_adjacencies_host(d):
-    """Numpy adjacency pruning of a host dict (the leaf's fallback)."""
-    words = d.words
-    ctx = d.ctx.astype(np.uint32)
-    k = d.k
-    tb = _rows_bytes(words)
-    new_ctx = np.zeros_like(ctx)
-    for code in range(4):
-        succ_c, _ = hbk.canonicalize(
-            hbk.to_successor(words, np.uint32(code), k), k
-        )
-        _, found = _search_host(tb, succ_c)
-        keep = (((ctx >> code) & 1).astype(bool)) & found
-        new_ctx |= keep.astype(np.uint32) << code
-        pred_c, _ = hbk.canonicalize(
-            hbk.to_predecessor(words, np.uint32(code), k), k
-        )
-        _, foundp = _search_host(tb, pred_c)
-        keepp = (((ctx >> (code + 4)) & 1).astype(bool)) & foundp
-        new_ctx |= keepp.astype(np.uint32) << (code + 4)
-    d.ctx = new_ctx
-    return d
-
-
-def _build_links_host(words, ctx, k: int):
-    """Numpy mirror of links_core over the full node space."""
-    M = words.shape[0]
-    tb = _rows_bytes(words)
-    pal = hbk.is_palindrome(words, k)
-    node_ids = np.arange(2 * M, dtype=np.int64)
-    kid_o = node_ids % M
-    src_rev = node_ids >= M
-    w_k = words[kid_o]
-    w_o = np.where(src_rev[:, None], hbk.rc_words(w_k, k), w_k)
-    ctx_o = np.where(src_rev, kctx.rc_context(ctx[kid_o]), ctx[kid_o])
-    pal_o = pal[kid_o]
-    succ_bits = kctx.succ_bits(ctx_o)
-    scount = kctx.popcount4(succ_bits)
-    scode = kctx.single_base(succ_bits)
-    succ_words = hbk.to_successor(w_o, scode.astype(np.uint32), k)
-    succ_canon, succ_isrev = hbk.canonicalize(succ_words, k)
-    vidx, found = _search_host(tb, succ_canon)
-    vidx = vidx.astype(np.int64)
-    v = vidx + succ_isrev.astype(np.int64) * M
-    vctx_can = ctx[vidx]
-    vctx = np.where(succ_isrev, kctx.rc_context(vctx_can), vctx_can)
-    vpred = kctx.popcount4(kctx.pred_bits(vctx))
-    vpal = pal[vidx]
-    hairpin = (vidx == kid_o) & (succ_isrev != src_rev)
-    ok = (
-        (scount == 1) & found & (~pal_o) & (~vpal) & (vpred == 1)
-        & (~hairpin)
-    )
-    return np.where(ok, v, -1).astype(np.int32)
-
-
 def _list_rank_native(lib, nxt):
     """C++ sequential chain-walk list ranking: the same head/rank on
     linear chains and the same on_cycle mask as pointer doubling."""
@@ -367,26 +307,6 @@ def _list_rank_native(lib, nxt):
         cyc.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
     )
     return head, rank, cyc.astype(bool)
-
-
-def _list_rank_host(nxt, n_iters: int):
-    """Numpy pointer-doubling list ranking (mirror of list_rank)."""
-    N2 = len(nxt)
-    M = N2 // 2
-    n = np.arange(N2, dtype=np.int32)
-    rc_n = np.where(n < M, n + M, n - M)
-    nxt_rc = nxt[rc_n].astype(np.int32)
-    prev = np.where(
-        nxt_rc >= 0, np.where(nxt_rc < M, nxt_rc + M, nxt_rc - M),
-        np.int32(-1),
-    )
-    ptr = np.where(prev >= 0, prev, n).astype(np.int32)
-    dist = (prev >= 0).astype(np.int32)
-    for _ in range(n_iters):
-        dist = dist + dist[ptr]
-        ptr = ptr[ptr]
-    on_cycle = prev[ptr] >= 0
-    return ptr.astype(np.int32), dist.astype(np.int32), on_cycle
 
 
 # ---------------------------------------------------------------------------
@@ -441,12 +361,8 @@ def build_unitigs(d, span: str = "step2.unitigs", host: bool = False, mesh=None)
     words = d.words
     ctx = d.ctx.astype(np.uint32)
     lib = _native_graph_lib()
-    if lib is not None:
-        nxt = _build_links_native(lib, words, ctx, k)
-        head, rank, on_cycle = _list_rank_native(lib, nxt)
-    else:
-        nxt = _build_links_host(words, ctx, k)
-        head, rank, on_cycle = _list_rank_host(nxt, rank_iters_for(M))
+    nxt = _build_links_native(lib, words, ctx, k)
+    head, rank, on_cycle = _list_rank_native(lib, nxt)
     rcw = hbk.rc_words(words, k)
     kmer_last = hbk.last_base(words, k).astype(np.uint8)  # (M,)
     rc_last = hbk.last_base(rcw, k).astype(np.uint8)

@@ -7,9 +7,9 @@ port calls (`pack_kernel.cc`: 2-bit packing + usable read lengths;
 unitig links and list ranking, `path_kernel.cc`: read and flat-sequence
 pathing).  Each module builds on demand into `native/build/` (listed in
 .gitignore), never next to the sources, and is rebuilt when a source is
-newer than its library.  Packing, FASTQ parsing and the graph leaf have
-numpy fallbacks; the blob count and the read pather do not, and their
-callers raise when `load` returns None.
+newer than its library.  Every leaf is required: none has a second
+implementation to fall back on, so `load` raises when a module does not
+build (g++, and zlib for the FASTQ loader).
 """
 
 from __future__ import annotations
@@ -42,14 +42,19 @@ def _build(name: str, sources, libs=()) -> str:
 
 
 def load(name: str, sources, libs=()):
-    """Build (if stale) and dlopen a native module; returns the CDLL or
-    None when no toolchain / build failure (callers fall back)."""
+    """Build (if stale) and dlopen a native module; returns the CDLL.
+    Raises RuntimeError naming the module and its sources, with the
+    compiler's stderr, when the module does not build or load."""
     with _LOCK:
         if name in _LIBS:
             return _LIBS[name]
+        what = f"native module {name} ({', '.join(sources)})"
         try:
             lib = ctypes.CDLL(_build(name, sources, libs))
-        except Exception:
-            lib = None
+        except subprocess.CalledProcessError as e:
+            raise RuntimeError(f"{what} did not build:\n"
+                               f"{e.stderr.decode(errors='replace')}") from e
+        except OSError as e:  # no g++, or a library that does not load
+            raise RuntimeError(f"{what} did not build or load: {e}") from e
         _LIBS[name] = lib
         return lib

@@ -262,9 +262,9 @@ int32_t w2rap_build_links(const uint32_t* words, const uint32_t* ctx,
 
 // List ranking over the oriented-node successor links: head = start of
 // each node's prev-chain, rank = #prev steps to it, on_cycle for nodes
-// on closed loops.  Sequential chain walks are O(N) where the numpy
-// pointer-doubling mirror (graph/build._list_rank_host) pays
-// O(N log N) gather passes.  prev[n] = rc(nxt[rc(n)]) by orientation
+// on closed loops.  Sequential chain walks are O(N) where pointer
+// doubling (the device route, graph/build.list_rank) pays O(N log N)
+// gather passes.  prev[n] = rc(nxt[rc(n)]) by orientation
 // symmetry; results match pointer doubling exactly on linear chains
 // (cycle nodes only feed the on_cycle mask downstream).
 void w2rap_list_rank(const int32_t* nxt, int64_t n2, int32_t* head,

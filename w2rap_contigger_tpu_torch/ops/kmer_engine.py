@@ -977,14 +977,8 @@ def count_kmers_flat(flat_bases, seg_offsets, k: int, min_freq: int = 1,
         if len(flat_bases) < k:
             return HostKmerDict(np.zeros((0, W), dtype=np.uint32),
                                 np.zeros(0, np.int32), np.zeros(0, np.uint32), k)
-        lib = _native_count_lib()
-        if lib is None:
-            raise RuntimeError(
-                "count_kmers_flat(host=True) needs the native leaf "
-                "native/count_kernel.cc, which did not build (g++ missing?); "
-                "the port has no other host count"
-            )
-        return _count_kmers_flat_native(lib, flat_bases, seg_offsets, k, W, min_freq)
+        return _count_kmers_flat_native(_native_count_lib(), flat_bases, seg_offsets, k, W,
+                                        min_freq)
     dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     if chunk_pos is None:
         chunk_pos = (1 << 21) if k <= 64 else (1 << 19)
@@ -1093,8 +1087,7 @@ def _host_merge_all(runs):
 
 
 def _native_count_lib():
-    """The C++ leaf counter (native/count_kernel.cc), or None when it
-    does not build."""
+    """The C++ leaf counter (native/count_kernel.cc)."""
     from .. import native
 
     return native.load("w2rapcount", ["count_kernel.cc"], libs=["pthread"])

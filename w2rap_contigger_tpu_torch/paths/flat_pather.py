@@ -15,8 +15,8 @@ chunks are dealt over its shards (`mesh=`).
 
 A HostKmerDict (or host=True; step 5's blob-local graphs) takes the host
 route (:48-80, :139-160, copied): one pass of the C++ leaf
-native/path_kernel.cc (`w2rap_path_flat`), or the numpy lookup when the
-leaf does not build.
+native/path_kernel.cc (`w2rap_path_flat`), which is required:
+`native.load` raises when it does not build.
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ import torch
 
 from ..device import note, timed, to_host, upload, wait_host
 from ..ops import bitkmer as bk
-from ..ops import np_bitkmer as hbk
 from ..ops.kmer_engine import HostKmerDict
 from ..ops.kmerize import pack_rows_host
 from ..ops.lookup import n_iters_for, search
@@ -87,34 +86,6 @@ def _path_flat_native_fill(lib, flat_bases, seg_offsets, d, hbv,
     )
 
 
-def _path_flat_numpy_fill(flat_bases, d, hbv, fwd_xlat, rev_xlat, k, all_e, all_o):
-    """The numpy lookup of every position (flat_pather.py:139-160)."""
-    from ..graph.build import _rows_bytes, _search_host
-
-    n_pos = len(all_e)
-    tb = _rows_bytes(d.words)
-    kd_e = np.asarray(d.edge_id)
-    kd_o = np.asarray(d.edge_offset)
-    kd_r = np.asarray(d.edge_rc)
-    fxh = np.asarray(fwd_xlat)
-    rxh = np.asarray(rev_xlat)
-    ekm_h = (np.diff(hbv.edge_start) - k + 1)[fwd_xlat].astype(np.int32)
-    win = np.lib.stride_tricks.sliding_window_view(
-        np.asarray(flat_bases), k
-    )[:n_pos]
-    words = hbk.pack_codes(np.ascontiguousarray(win), k)
-    canon, is_rev = hbk.canonicalize(words, k)
-    idx, found = _search_host(tb, canon)
-    e0 = kd_e[idx]
-    rc = is_rev ^ kd_r[idx]
-    he = np.where(rc, rxh[e0], fxh[e0]).astype(np.int32)
-    ekm_e = ekm_h[e0].astype(np.int32)
-    all_o[:] = np.where(
-        rc, ekm_e - 1 - kd_o[idx], kd_o[idx]
-    ).astype(np.int32)
-    all_e[:] = np.where(found, he, -1).astype(np.int32)
-
-
 def path_flat_sequences(flat_bases, seg_offsets, d, hbv, fwd_xlat, rev_xlat,
                         chunk_pos: int | None = None, span: str = "step3.pathing",
                         host: bool = False, mesh=None):
@@ -142,13 +113,8 @@ def path_flat_sequences(flat_bases, seg_offsets, d, hbv, fwd_xlat, rev_xlat,
         if not isinstance(d, HostKmerDict):
             raise TypeError("the host route takes a HostKmerDict")
         if n_pos > 0:
-            lib = _native_path_lib()
-            if lib is not None:
-                _path_flat_native_fill(lib, flat_bases, seg_offsets, d, hbv,
-                                       fwd_xlat, rev_xlat, k, all_e, all_o)
-            else:
-                _path_flat_numpy_fill(flat_bases, d, hbv, fwd_xlat, rev_xlat,
-                                      k, all_e, all_o)
+            _path_flat_native_fill(_native_path_lib(), flat_bases, seg_offsets, d, hbv,
+                                   fwd_xlat, rev_xlat, k, all_e, all_o)
     elif n_pos > 0 and d.size > 0:
         dev = d.device
         n_iters = n_iters_for(d.size)

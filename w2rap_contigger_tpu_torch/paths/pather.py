@@ -15,7 +15,7 @@ A HostKmerDict (step 5's blob-local graphs) is pathed by the C++ leaf
 native/path_kernel.cc (`_path_reads_native`, pather.py:342-417), which
 fills the same compact run-start slots for the same numpy decode.  The
 JAX package falls back to its device route when the leaf does not build;
-the port raises.
+in the port every native leaf is required, and `native.load` raises.
 
 Replaces the reference's seed-and-extend BRQ_Pather + path_reads_OMP
 (src/paths/long/BuildReadQGraph.cc:494-560,829-940): PathParts are the
@@ -263,8 +263,7 @@ def edge_tail_words(hbv):
 
 
 def _native_path_lib():
-    """The C++ pathing leaf (native/path_kernel.cc), or None when it does
-    not build."""
+    """The C++ pathing leaf (native/path_kernel.cc)."""
     from .. import native
 
     return native.load("w2rappath", ["path_kernel.cc"], libs=["pthread"])
@@ -351,13 +350,7 @@ def path_reads(reads, d, hbv, fwd_xlat, rev_xlat,
             np.zeros(n, dtype=np.int32),
         )
     if isinstance(d, HostKmerDict):
-        lib = _native_path_lib()
-        if lib is None:
-            raise RuntimeError(
-                "host read pathing needs the native leaf native/path_kernel.cc, "
-                "which did not build (g++ missing?); the port has no other"
-            )
-        return _path_reads_native(lib, reads, d, hbv, fwd_xlat, rev_xlat, k,
+        return _path_reads_native(_native_path_lib(), reads, d, hbv, fwd_xlat, rev_xlat, k,
                                   edge_tail_words(hbv))
     dev = d.device
     n_iters = n_iters_for(d.size)
