@@ -19,6 +19,8 @@ from w2rap_contigger_tpu.paths import pather as jpather
 from w2rap_contigger_tpu_torch import state
 from w2rap_contigger_tpu_torch.graph import build as tgb
 from w2rap_contigger_tpu_torch.ops import bitkmer as bk
+from w2rap_contigger_tpu_torch.ops import kmer_engine as tke
+from w2rap_contigger_tpu_torch.ops import kmerize as tkm
 from w2rap_contigger_tpu_torch.ops.lookup import n_iters_for
 from w2rap_contigger_tpu_torch.paths import pather as tpather
 from _torch_guards import time_limited  # noqa: F401
@@ -170,7 +172,7 @@ def _pather_inputs(built):
 def test_lookup_compact_matches(built):
     d, jd, hbv, fx, rx, ekm = _pather_inputs(built)
     reads = built["reads"]
-    packed = tpather.pack_rows_host(reads.bases)
+    packed = tkm.pack_rows_host(reads.bases)
     n_iters = n_iters_for(d.size)
     want = jpather._lookup_compact_chunk(
         jnp.asarray(packed), jnp.asarray(reads.lengths),
@@ -214,6 +216,29 @@ def test_path_reads_match(built, monkeypatch, slots):
     assert len(got.edges) > 0
 
 
+def test_path_reads_packs_as_the_count_does(built, monkeypatch):
+    """The device route takes its packed rows from the count's chunks
+    (kmer_engine._device_chunks), never from the numpy pack: with
+    pack_rows_host made to raise, path_reads still gives the JAX
+    package's paths, over chunks whose last one is ragged."""
+    d, jd, hbv, fx, rx, _ = _pather_inputs(built)
+    reads = built["reads"]
+
+    def refuse(*_):
+        raise AssertionError("path_reads called the numpy pack")
+
+    for mod in (tkm, tke):
+        monkeypatch.setattr(mod, "pack_rows_host", refuse)
+    assert not hasattr(tpather, "pack_rows_host")
+    assert reads.n_reads % 200
+    want = jpather.path_reads(reads, jd, hbv, fx, rx, chunk_reads=200)
+    got = tpather.path_reads(reads, d, hbv, fx, rx, chunk_reads=200)
+    np.testing.assert_array_equal(got.offsets, want.offsets)
+    np.testing.assert_array_equal(got.edges, want.edges)
+    np.testing.assert_array_equal(got.start, want.start)
+    assert len(got.edges) > 0
+
+
 def _large_k_pieces(seed=5, n=3000, piece=1500, step=100):
     """15 overlapping 1.5 kb pieces of one random 3 kb sequence (a blob's
     corrected reads, as step 5 hands them to its local graph)."""
@@ -230,8 +255,6 @@ def test_host_leaf_graph_matches_torch_at_large_k(k):
     build the torch route's graph: one unitig over the 3 kb sequence.
     The JAX package's leaf overruns its stack arrays there, so the
     port's torch route is the oracle."""
-    from w2rap_contigger_tpu_torch.ops import kmer_engine as tke
-
     assert tgb._native_graph_lib() is not None
     flat, seg = _large_k_pieces()
     hd = tke.count_kmers_flat(flat, seg, k, min_freq=2, host=True)

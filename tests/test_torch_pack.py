@@ -8,17 +8,21 @@ bad bases and shift-and of each word's mask) against the plain version, the host
 route of `_device_chunks`, and the wrapper's checks.  On a card (`cuda`):
 the kernel against the plain version and `pack_and_glen_host` on the same
 cases and on one 65,536 x 250 chunk, and `_device_chunks` against its host
-route, one K0 launch a chunk.  The file imports no JAX, so the `cuda`
-tests run on a card alone (`python -m pytest --noconftest
-tests/test_torch_pack.py`)."""
+route, one K0 launch a chunk, and `path_reads` on a card dictionary
+against the CPU route, one K0 launch a pathing chunk.  The file imports
+no JAX, so the `cuda` tests run on a card alone (`python -m pytest
+--noconftest tests/test_torch_pack.py`)."""
 
 import numpy as np
 import pytest
 import torch
 
 from w2rap_contigger_tpu_torch import device as tdev
+from w2rap_contigger_tpu_torch.core.reads import ReadSet
+from w2rap_contigger_tpu_torch.graph import build as tgb
 from w2rap_contigger_tpu_torch.ops import kmer_engine as tke
 from w2rap_contigger_tpu_torch.ops import kmerize as kkm
+from w2rap_contigger_tpu_torch.paths import pather as tpather
 from _torch_guards import time_limited  # noqa: F401
 import _pack_cases as pc
 
@@ -247,3 +251,52 @@ def test_device_chunks_on_the_card_match_the_host_route():
         for (pr, glen), (want_pr, want_glen) in zip(got, want):
             np.testing.assert_array_equal(pr, want_pr)
             np.testing.assert_array_equal(glen, want_glen)
+
+
+def _pathing_case():
+    """Reads of 100 bases tiled every 3 over a random 3 kb genome, one in
+    ten with a substitution, so paths hold several runs."""
+    rng = np.random.default_rng(3)
+    g = rng.integers(0, 4, 3000).astype(np.uint8)
+    bases = np.stack([g[s:s + 100] for s in range(0, len(g) - 100, 3)])
+    noisy = np.flatnonzero(rng.random(len(bases)) < 0.1)
+    pos = rng.integers(0, 100, len(noisy))
+    bases[noisy, pos] = (bases[noisy, pos] + 1) % 4
+    n = len(bases)
+    return ReadSet(bases, np.full(n, 100, np.int32), np.full((n, 100), 35, np.uint8))
+
+
+def _graph_on(reads, dev):
+    d, _ = tke.count_kmers_device(reads.bases, reads.lengths, reads.quals, 60,
+                                  min_freq=2, device=dev)
+    tgb.recompute_adjacencies(d)
+    return d, tgb.build_unitigs(d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [tpather.RUN_SLOTS, 1])
+def test_path_reads_on_the_card_match_the_cpu_route(monkeypatch, slots):
+    """path_reads on a card dictionary packs each chunk with K0, one
+    launch a chunk, and gives the CPU route's paths; slots=1 sends every
+    chunk with a read of 2+ runs to the dense fallback (lookup_core on
+    the same packed rows)."""
+    _card()
+    reads = _pathing_case()
+    d_cpu, edges = _graph_on(reads, "cpu")
+    d, card_edges = _graph_on(reads, "cuda")
+    for a, b in zip(card_edges, edges):
+        np.testing.assert_array_equal(a, b)
+    hbv, fx, rx = tgb.build_hbv_from_edges(*edges, 60)
+    monkeypatch.setattr(tpather, "RUN_SLOTS", slots)
+    dense = []
+    decode_chunk = tpather._decode_chunk
+    monkeypatch.setattr(tpather, "_decode_chunk",
+                        lambda *a: dense.append(1) or decode_chunk(*a))
+    want = tpather.path_reads(reads, d_cpu, hbv, fx, rx, chunk_reads=256)
+    before = tdev.LAUNCHES["pack"]
+    got = tpather.path_reads(reads, d, hbv, fx, rx, chunk_reads=256)
+    assert tdev.LAUNCHES["pack"] == before + -(-reads.n_reads // 256)
+    assert (len(dense) > 0) == (slots == 1)
+    for key in ("offsets", "edges", "start"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(want, key), err_msg=key)
+    assert len(got.edges) > 0

@@ -20,8 +20,9 @@ another permutation, so the two are compared as multisets.
 The host-side packing (`pack_rows_host`, `pack_and_glen_host`) is
 copied from pallas_kmer.py:151-216; `pack_and_glen_host` is the C++ pass
 of native/pack_kernel.cc, built by the port's g++ loader, which raises
-when it does not build.  `pack_rows_host` is the numpy pack that the
-pathing, gapfill, precorrect and the flat count use.
+when it does not build.  `pack_rows_host` is the numpy pack that
+gapfill, precorrect, the flat pather and the flat count use; the read
+pathing packs as the count does (`kmer_engine._device_chunks`).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Read pathing: batched dictionary lookup + run-start compaction on the
-device, run-length decode on the host.
+"""Read pathing: 2-bit pack, batched dictionary lookup and run-start
+compaction on the dictionary's device, run-length decode on the host.
 
 Counterpart of w2rap_contigger_tpu/paths/pather.py on its device route:
 `lookup_core` and `lookup_compact` are the torch forms of `_lookup_core`
@@ -10,6 +10,14 @@ dictionaries, with the same dense fallback for a chunk
 in which a read has more than RUN_SLOTS runs (:515-529).  The numpy
 decode (`_decode_chunk`, `_decode_compact`, `_parts_to_paths`,
 `edge_tail_words`, :159-340) is copied with its imports redirected.
+
+Each chunk's reads are packed where the count packs them
+(`kmer_engine._device_chunks`): on a card a worker thread uploads the
+next chunk's raw codes, qualities and lengths while the host decodes,
+and K0 (csrc/pack.cu) packs them there; on the CPU the C++ pack
+(`pack_and_glen_host`) does.  Both mask codes with & 3, which a ReadSet's
+codes (0-3: the FASTQ loader maps N to 0) never need, so the rows are the
+JAX package's `pack_rows_host(bases)`.
 
 A HostKmerDict (step 5's blob-local graphs) is pathed by the C++ leaf
 native/path_kernel.cc (`_path_reads_native`, pather.py:342-417), which
@@ -30,8 +38,7 @@ import torch
 from ..device import note, timed, to_host, upload, wait_host
 from ..ops import bitkmer as bk
 from ..ops import np_bitkmer as hbk
-from ..ops.kmer_engine import HostKmerDict
-from ..ops.kmerize import pack_rows_host
+from ..ops.kmer_engine import HostKmerDict, _device_chunks
 from ..ops.lookup import n_iters_for, search
 from ..parallel.mesh import on
 from .read_paths import ReadPathVec
@@ -331,7 +338,9 @@ def _path_reads_native(lib, reads, d, hbv, fwd_xlat, rev_xlat, k,
 def path_reads(reads, d, hbv, fwd_xlat, rev_xlat,
                chunk_reads: int = 262144, mesh=None) -> ReadPathVec:
     """Path every read through the HBV on the dictionary's device, or
-    with the native leaf for a host dict (pather.py:450-458).  A mesh
+    with the native leaf for a host dict (pather.py:450-458).  On the
+    device each chunk is packed there (K0 on a card, the C++ pack on the
+    CPU; see the module docstring), looked up, and decoded on the host.  A mesh
     splits each chunk's reads into a contiguous slice a shard, looked up
     on the shard's device against replicated tables (JAX
     mesh.py:388-413); the host decode is the same.
@@ -363,16 +372,17 @@ def path_reads(reads, d, hbv, fwd_xlat, rev_xlat,
 
     def sharded(fn, packed, cl):
         """fn's outputs over the chunk's reads, a slice a shard, as int32
-        numpy arrays in read order: every shard's upload, lookup and copy
-        back are enqueued, each on its shard's stream, before the one host
-        wait."""
+        numpy arrays in read order: every shard's lookup and copy back
+        are enqueued, each on its shard's stream, before the one host
+        wait.  packed: the chunk's int32 rows on the dictionary's device;
+        a shard on another device gets its slice by a device copy."""
         pending = []
         for i, (lo, hi) in enumerate(mesh.slices(len(cl)) if mesh is not None
                                      else [(0, len(cl))]):
             if hi > lo:
                 with on(mesh, i):
                     note("lookup", i)
-                    dp = bk.from_raw32(upload(packed[lo:hi].view(np.int32), devices[i]))
+                    dp = bk.from_raw32(packed[lo:hi].to(devices[i]))
                     dl = upload(cl[lo:hi].astype(np.int64), devices[i])
                     pending.append([to_host(t.to(torch.int32))
                                     for t in fn(dp, dl, *reps[i], k, n_iters, L)])
@@ -383,10 +393,13 @@ def path_reads(reads, d, hbv, fwd_xlat, rev_xlat,
     all_edges = []
     all_offs = []
     all_start = []
-    for start in range(0, n, chunk_reads):
+    # min_qual shapes only the usable lengths, which the pathing ignores:
+    # its windows end at each read's length
+    chunks = _device_chunks(reads.bases, reads.lengths, reads.quals, k, 0, chunk_reads, dev)
+    for i, (packed, _) in enumerate(chunks):
+        start = i * chunk_reads
         stop = min(start + chunk_reads, n)
         cl = np.ascontiguousarray(reads.lengths[start:stop], dtype=np.int32)
-        packed = pack_rows_host(reads.bases[start:stop])
         with timed("step2.pathing.lookup", devices):
             pos_s, e_s, off_s, ekm_s, nruns = sharded(lookup_compact, packed, cl)
         if int(nruns.max(initial=0)) <= pos_s.shape[1]:
